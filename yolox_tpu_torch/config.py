@@ -1,0 +1,270 @@
+"""YoloxConfig — hyperparameter dataclass + named model registry.
+
+The same field table, defaults and `-D key=value` coercion as the JAX
+package's `yolox_tpu/config.py`, so configs and overrides carry over
+unchanged. This slice of the PyTorch port builds the serving model only:
+the dataset, loader, optimizer, scheduler, trainer and evaluator factories
+raise `NotImplementedError` until their modules are ported.
+
+Fields that tune the JAX package's TPU layouts (`lane_fold*`,
+`serve_lane_fold`, `serve_stem_s2d*`, `train_stem_s2d`, `remat`) are kept
+as inert fields so that `-D` overrides stay portable; the port ignores them.
+"""
+
+from __future__ import annotations
+
+import ast
+from dataclasses import dataclass
+from typing import Any, Dict, Literal, Optional, Tuple
+
+
+def _later(what: str):
+    raise NotImplementedError(
+        f"{what} is not ported to yolox_tpu_torch yet (a later slice of the "
+        "port brings it; see ROADMAP.md)")
+
+
+@dataclass
+class YoloxConfig:
+    name: str
+
+    # ---------------- model config ---------------- #
+    num_classes: int = 80
+    depth: float = 1.00
+    width: float = 1.00
+    depthwise: bool = False
+    act: Literal["silu", "relu", "lrelu"] = "silu"
+
+    seed: Optional[Any] = None
+    output_dir: str = "./out"
+
+    # ---------------- dataloader config ---------------- #
+    deterministic: bool = False
+    data_num_workers: int = 4
+    input_size: Tuple[int, int] = (640, 640)  # (height, width)
+    # Actual multiscale ranges: [640 - 5 * 32, 640 + 5 * 32]; 0 disables.
+    multiscale_range: int = 5
+    random_size: Optional[Tuple[int, int]] = None
+    data_dir: Optional[str] = None
+    train_ann: str = "instances_train2017.json"
+    val_ann: str = "instances_val2017.json"
+    test_ann: str = "instances_test2017.json"
+
+    # --------------- transform config ----------------- #
+    mosaic_prob: float = 1.0
+    mixup_prob: float = 1.0
+    hsv_prob: float = 1.0
+    flip_prob: float = 0.5
+    degrees: float = 10.0
+    translate: float = 0.1
+    mosaic_scale: Tuple[float, float] = (0.1, 2)
+    enable_mixup: bool = True
+    mixup_scale: Tuple[float, float] = (0.5, 1.5)
+    shear: float = 2.0
+
+    # --------------  training config --------------------- #
+    warmup_epochs: int = 5
+    max_epoch: int = 300
+    warmup_lr: int = 0
+    min_lr_ratio: float = 0.05
+    basic_lr_per_img: float = 0.01 / 64.0
+    scheduler: str = "yoloxwarmcos"
+    no_aug_epochs: int = 15
+    ema: bool = True
+    freeze_prefix: Optional[str] = None
+    max_labels: int = 120
+    # SimOTA candidate cap; None = dense-exact assignment over all anchors.
+    simota_candidates: Optional[int] = None
+
+    weight_decay: float = 5e-4
+    momentum: float = 0.9
+    print_interval: int = 10
+    eval_interval: int = 10
+    save_history_ckpt: bool = True
+    ckpt_format: str = "pth"
+    # TPU-layout knobs of the JAX package; inert in the port.
+    remat: bool = False
+    lane_fold: bool = True
+    lane_fold_target: int = 256
+    serve_lane_fold: bool = False
+    serve_stem_s2d: Any = "auto"
+    serve_stem_s2d_max_batch: int = 32
+    train_stem_s2d: bool = False
+    fused_conv_bwd: bool = False
+    device_augment: bool = False
+    warmup_multiscale: bool = False
+
+    # -----------------  testing config ------------------ #
+    test_size: Tuple[int, int] = (640, 640)
+    test_conf: float = 0.01
+    nmsthre: float = 0.65
+
+    dataset: Optional[Any] = None
+
+    @classmethod
+    def get_named_config(cls, name: str) -> Optional["YoloxConfig"]:
+        factory = _NAMED_CONFIG.get(name.replace("-", "_"))
+        return factory() if factory is not None else None
+
+    def validate(self):
+        h, w = self.input_size
+        if h % 32 or w % 32:
+            raise ValueError("input size must be multiples of 32")
+
+    def update(self, opts: Dict[str, str]):
+        """Apply `-D key=value` CLI overrides with type coercion."""
+        for k, v in opts.items():
+            if not hasattr(self, k):
+                raise AttributeError(
+                    f"Unknown model configuration option: {k}")
+            src_value = getattr(self, k)
+            src_type = type(src_value)
+
+            if isinstance(src_value, (list, tuple)):
+                v = v.strip("[]()")
+                v = [t.strip() for t in v.split(",")]
+                if len(src_value) > 0:
+                    src_item_type = type(src_value[0])
+                    v = [src_item_type(t) for t in v]
+                v = src_type(v)
+            elif src_value is not None and src_type != type(v):
+                try:
+                    v = src_type(v)
+                except Exception:
+                    v = ast.literal_eval(v)
+            elif src_value is None:
+                # Optional fields: accept numeric / literal overrides, keep
+                # plain strings as strings
+                try:
+                    v = ast.literal_eval(v)
+                except (ValueError, SyntaxError):
+                    pass
+            if k == "seed":
+                v = int(v)
+            setattr(self, k, v)
+
+    # ----------------- factory hub ----------------- #
+
+    def get_model(self, rng_seed: int = 0, device=None):
+        """Build a fresh YoloxModule with seeded random parameters."""
+        from yolox_tpu_torch.models.yolox import YoloxModule
+
+        return YoloxModule.from_config(self, rng_seed=rng_seed, device=device)
+
+    def get_dataset(self, cache: bool = False, cache_type: str = "ram"):
+        _later("the COCO dataset (training data pipeline)")
+
+    def get_data_loader(self, batch_size, is_distributed=False, no_aug=False,
+                        cache_img: Optional[str] = None):
+        _later("the training data loader")
+
+    def get_optimizer(self, batch_size):
+        _later("the optimizer (training)")
+
+    def get_lr_scheduler(self, lr, iters_per_epoch):
+        _later("the LR scheduler (training)")
+
+    def get_eval_dataset(self, **kwargs):
+        _later("the evaluation dataset")
+
+    def get_eval_loader(self, batch_size, is_distributed=False, **kwargs):
+        _later("the evaluation loader")
+
+    def get_evaluator(self, batch_size, is_distributed=False, testdev=False,
+                      legacy=False):
+        _later("the COCO evaluator")
+
+    def get_trainer(self, args):
+        _later("the trainer")
+
+    def eval(self, model, evaluator, is_distributed=False, half=False,
+             return_outputs=False):
+        _later("evaluation")
+
+
+def validate_config(config: YoloxConfig):
+    config.validate()
+
+
+class YoloxS(YoloxConfig):
+    def __init__(self):
+        super().__init__("yolox_s")
+        self.depth = 0.33
+        self.width = 0.50
+
+
+class YoloxM(YoloxConfig):
+    def __init__(self):
+        super().__init__("yolox_m")
+        self.depth = 0.67
+        self.width = 0.75
+
+
+class YoloxL(YoloxConfig):
+    def __init__(self):
+        super().__init__("yolox_l")
+        self.depth = 1.0
+        self.width = 1.0
+
+
+class YoloxX(YoloxConfig):
+    def __init__(self):
+        super().__init__("yolox_x")
+        self.depth = 1.33
+        self.width = 1.25
+
+
+class YoloxTiny(YoloxConfig):
+    def __init__(self):
+        super().__init__("yolox_tiny")
+        self.depth = 0.33
+        self.width = 0.375
+        self.input_size = (416, 416)
+        self.random_size = (10, 20)
+        self.mosaic_scale = (0.5, 1.5)
+        self.test_size = (416, 416)
+        self.enable_mixup = False
+
+
+class Yolov3(YoloxConfig):
+    """Legacy yolov3 variant: Darknet-53 + YoloFpn + decoupled head, lrelu.
+
+    The config is registered so its fields match the JAX package; the
+    Darknet-53 / YoloFpn model itself is not ported yet.
+    """
+
+    def __init__(self):
+        super().__init__("yolov3")
+        self.depth = 1.0
+        self.width = 1.0
+        self.act = "lrelu"
+
+    def get_model(self, rng_seed: int = 0, device=None):
+        _later("the yolov3 model (Darknet-53 + YoloFpn)")
+
+
+class YoloxNano(YoloxConfig):
+    def __init__(self):
+        super().__init__("yolox_nano")
+        self.depth = 0.33
+        self.width = 0.25
+        self.depthwise = True
+        self.input_size = (416, 416)
+        self.random_size = (10, 20)
+        self.mosaic_scale = (0.5, 1.5)
+        self.test_size = (416, 416)
+        self.mosaic_prob = 0.5
+        self.enable_mixup = False
+
+
+# Registered as factories: a fresh instance per lookup, so a caller that
+# mutates its config never changes the registry.
+_NAMED_CONFIG = {
+    "yolox_s": YoloxS,
+    "yolox_m": YoloxM,
+    "yolox_l": YoloxL,
+    "yolox_x": YoloxX,
+    "yolox_tiny": YoloxTiny,
+    "yolox_nano": YoloxNano,
+    "yolov3": Yolov3,
+}

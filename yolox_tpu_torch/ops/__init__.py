@@ -1,0 +1,1 @@
+"""Tensor functions and the hand-written CUDA kernels of the PyTorch port."""
