@@ -23,10 +23,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    `tests/golden/s_serve_seed4321.npz` and `s_seed4321.npz`;
 5. times with CUDA events after warm-up at B 1 and 32: each kernel, its
    plain version, a one-call-chain PyTorch yardstick for K1, and serve
-   latency (B 1) and throughput (B 32) in float32 and bfloat16.
+   latency (B 1) and throughput (B 32) in float32 and bfloat16;
+6. K3 and K4, the fused Conv-BN-SiLU backward kernels, against their plain
+   versions at all 43 1x1 SiLU conv shapes of yolox-s (B 16, 640 px,
+   float32 and bf16), on random x and g_y with the BN statistics of the
+   conv's own forward (tolerances: `K3_TOL`, `K4_*_TOL`);
+7. the training slice of yolox-s at full width and depth, 640 px, B 16,
+   synthetic labels (1-30 boxes an image in 120 padded rows), through
+   `make_train_step(fused_bwd=True)`: 3 steps in float32 and 3 in bf16
+   with finite losses and the launch counters read around each step (K3
+   and K4 43 times a step, K1 and K2 never); with one SimOTA assignment
+   held fixed, the fused step's gradients against the autograd step's
+   (`fused_bwd=False`) on the card, and one B 2 step on the card against
+   the same step on the CPU (plain versions); then step times for both
+   `fused_bwd` settings in both dtypes, the device's busy share, and K3 /
+   K4 times per launch and per step beside their plain versions, bounds
+   and cuDNN yardsticks.
 
-Then one JSON line describing the kernels, the `nvidia-smi` name and power
-limit, and as the last line `{"ok": true, "device": {...}}`.
+Then JSON lines with the serve and training times and the kernels, the
+`nvidia-smi` name and power limit, and as the last line `{"ok": true,
+"device": {...}}`.
 
 TF32 is turned off here (cuDNN and matmul) before any comparison with
 float32 references; the package itself never changes global flags.
@@ -47,9 +63,16 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "golden"
 
-# NVIDIA H100 SXM data sheet, dense: float32 on CUDA cores, HBM3 bandwidth
+# NVIDIA H100 SXM data sheet, dense: float32 on CUDA cores, bf16 on tensor
+# cores, HBM3 bandwidth
 H100_F32_FLOPS = 67e12
+H100_BF16_FLOPS = 989e12
 H100_HBM_BYTES = 3.35e12
+# float32 operations per element of the BN-backward epilogue: z_hat (2),
+# a (2), sigmoid (3), SiLU' (4), g_a (1); K3 adds two sums (3), K4's g_z
+# three more (4)
+K3_OPS = 15
+K4_EPI_OPS = 16
 # float operations of one IoU and its test in `pairwise_iou_xyxy`
 # (4 max/min, 2 compares, 4 subtracts, 3 multiplies, 2 adds, 1 divide, 1 compare)
 IOU_FLOPS = 17
@@ -226,6 +249,157 @@ def nms_bound(valid):
     t_bytes, t_ops = nbytes / H100_HBM_BYTES, flops / H100_F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def conv_bwd_case(seed, b, ci, co, h, w, dtype, device):
+    """Inputs of K3 and K4 for one 1x1 conv: x and W random from `seed`,
+    z = conv(x, W) with the BN statistics of that forward (mean, inv),
+    gamma and beta near 1 and 0, g_y random."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    x = t(rng.standard_normal((b, ci, h, w))).to(dtype)
+    wt = t(rng.uniform(-1, 1, (co, ci)) / np.sqrt(ci)).to(dtype)
+    z = torch.einsum("oi,bihw->bohw", wt.float(), x.float()).to(dtype)
+    mean = z.float().mean((0, 2, 3))
+    inv = torch.rsqrt(((z.float() - mean[:, None, None]) ** 2).mean((0, 2, 3))
+                      + 1e-3)
+    return {"x": x, "w": wt, "z": z, "mean": mean, "inv": inv,
+            "gamma": t(1.0 + 0.3 * rng.standard_normal(co)),
+            "beta": t(0.1 * rng.standard_normal(co)),
+            "g_y": t(rng.standard_normal((b, co, h, w))).to(dtype)}
+
+
+# Tolerances of K3 / K4 against their plain versions, relative to the sum
+# of |terms| of each output (per channel for K3): float32 sums in another
+# order (K3 and the dgrad chain at most a few hundred terms a thread, the
+# split-K wgrad up to ~1300); bf16 outputs one bf16 rounding of their own
+# plus one of g_z (rounded to bf16 before both products) per term.
+K3_TOL = 2e-5
+K4_DGRAD_TOL = 2e-5
+K4_WGRAD_TOL = 1e-4
+
+
+def check_conv_bwd(case):
+    """K3 and K4 on `case` against their plain versions. Returns {"k3",
+    "k4"}: (max abs error, max error over its tolerance); fails when the
+    latter exceeds 1."""
+    import torch
+
+    from yolox_tpu_torch.ops import conv_bwd as cb
+
+    x, w, z, g_y = case["x"], case["w"], case["z"], case["g_y"]
+    gamma, beta, mean, inv = (case[k] for k in ("gamma", "beta", "mean",
+                                                "inv"))
+    n = z.shape[0] * z.shape[2] * z.shape[3]
+    bf16 = x.dtype == torch.bfloat16
+
+    def ch(v):
+        return v[None, :, None, None]
+
+    got = cb.reduce_sums(z, g_y, gamma, beta, mean, inv)
+    want = cb.reduce_sums_plain(z, g_y, gamma, beta, mean, inv)
+    zh = (z.float() - ch(mean)) * ch(inv)
+    a = zh * ch(gamma) + ch(beta)
+    s = torch.sigmoid(a)
+    ga = g_y.float() * s * (1 + a * (1 - s))
+    terms = torch.stack([ga.abs().sum((0, 2, 3)),
+                         (ga * zh).abs().sum((0, 2, 3))])
+    d3 = (got - want).abs()
+    k3 = (d3.max().item(), (d3 / (K3_TOL * terms + 1e-30)).max().item())
+
+    coeff = torch.stack([gamma, beta, gamma * inv, want[0] / n, want[1] / n,
+                         mean, inv])
+    gx, gw = cb.main_1x1(x, z, g_y, w, coeff)
+    gx_p, gw_p = cb.main_1x1_plain(x, z, g_y, w, coeff)
+    g_z = (ch(gamma * inv) * (ga - ch(want[0] / n) - zh * ch(want[1] / n))
+           ).to(x.dtype).float()
+    tx = torch.einsum("oi,bohw->bihw", w.float().abs(), g_z.abs())
+    tw = torch.einsum("bohw,bihw->oi", g_z.abs(), x.float().abs())
+    dx = (gx.float() - gx_p.float()).abs()
+    dw = (gw - gw_p).abs()
+    if bf16:
+        lim_x = 2.0 ** -7 * gx_p.float().abs() + 2.0 ** -8 * tx
+        lim_w = (2.0 ** -8 + K4_WGRAD_TOL) * tw
+    else:
+        lim_x, lim_w = K4_DGRAD_TOL * tx, K4_WGRAD_TOL * tw
+    k4 = (max(dx.max().item(), dw.max().item()),
+          max((dx / (lim_x + 1e-30)).max().item(),
+              (dw / (lim_w + 1e-30)).max().item()))
+    torch.cuda.synchronize()
+    if k3[1] > 1 or k4[1] > 1:
+        raise AssertionError(f"K3 / K4 disagree with their plain versions: "
+                             f"K3 {k3}, K4 {k4}")
+    return {"k3": k3, "k4": k4}
+
+
+def conv_bwd_bounds(b, ci, co, hw, elt_bytes, bf16):
+    """Least times of K3 and K4 on an H100 for one 1x1 conv, as {"k3",
+    "k4"}: (ms for the bytes, ms for the operations); the bound is the
+    larger. Each input is read once and each output written once; K4's two
+    products (2 * 2 * N * Ci * Co) run at the bf16 tensor-core or the
+    float32 CUDA-core peak, the f32 epilogues at the CUDA-core peak."""
+    n = b * hw
+    k3_bytes = 2 * n * co * elt_bytes + 6 * co * 4
+    k4_bytes = ((2 * n * ci + 2 * n * co + ci * co) * elt_bytes
+                + 7 * co * 4 + ci * co * 4)
+    k4_ops = (4 * n * ci * co / (H100_BF16_FLOPS if bf16 else H100_F32_FLOPS)
+              + K4_EPI_OPS * n * co / H100_F32_FLOPS)
+    return {"k3": (1e3 * k3_bytes / H100_HBM_BYTES,
+                   1e3 * K3_OPS * n * co / H100_F32_FLOPS),
+            "k4": (1e3 * k4_bytes / H100_HBM_BYTES, 1e3 * k4_ops)}
+
+
+def synthetic_labels(rng, b, size=640, max_labels=120, num_classes=80):
+    """(b, max_labels, 5) rows (cls, cx, cy, w, h): 1-30 boxes an image,
+    sides 16 px to half the image, inside it; zero rows pad."""
+    labels = np.zeros((b, max_labels, 5), np.float32)
+    for i in range(b):
+        n = int(rng.integers(1, 31))
+        w, h = rng.uniform(16, size / 2, (2, n))
+        labels[i, :n] = np.stack([
+            rng.integers(0, num_classes, n), rng.uniform(w / 2, size - w / 2),
+            rng.uniform(h / 2, size - h / 2), w, h], 1)
+    return labels
+
+
+def kernel_conv_shapes(module, size=640):
+    """(Ci, Co, H, W) of every BaseConv that takes K3 and K4 in a training
+    step (1x1, stride 1, groups 1, SiLU), in forward order, read with hooks
+    from one eval forward of a 1-image batch."""
+    import torch
+
+    from yolox_tpu_torch.models.blocks import BaseConv
+    from yolox_tpu_torch.ops.conv_bwd import uses_kernels
+
+    shapes, hooks = [], []
+    for m in module.modules():
+        if isinstance(m, BaseConv) and uses_kernels(
+                m.conv.kernel_size[0], m.conv.stride[0], m.conv.groups,
+                m.act_name):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, args: shapes.append(
+                    (args[0].shape[1], mod.conv.out_channels)
+                    + tuple(args[0].shape[2:]))))
+    try:
+        module(np.zeros((1, size, size, 3), np.uint8))
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    return shapes
+
+
+def tensors_close(got, want, tol):
+    """max over tensors of max |got - want| over `tol` times the largest
+    |want| entry among all of them (0 when every tensor agrees)."""
+    scale = max(float(w.abs().max()) for w in want.values())
+    return max(float((got[k].float() - want[k].float()).abs().max())
+               for k in want) / (tol * scale)
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -506,18 +680,27 @@ def phase_times(rng, gpu_mod, wb, scale, bias, threshold):
 
 
 def device_breakdown(module, x, threshold, reps=5):
-    """Device time of one serve call by kernel, from torch.profiler (CUPTI):
-    (device ms per call, [(kernel, ms per call), ...] largest first)."""
+    """Device time of one serve call by kernel (`device_time`)."""
+    def serve():
+        dets, valid = module.serve(x, conf_thre=threshold, max_det=1024)
+        dets.cpu(), valid.cpu()
+
+    return device_time(serve, reps)
+
+
+def device_time(fn, reps=2):
+    """Device time of fn() by kernel, from torch.profiler (CUPTI), after
+    one unprofiled call: (device ms per call, [(kernel, ms per call), ...]
+    largest first)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    module.serve(x, conf_thre=threshold, max_det=1024)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            dets, valid = module.serve(x, conf_thre=threshold, max_det=1024)
-            dets.cpu(), valid.cpu()
+            fn()
         torch.cuda.synchronize()
     per_kernel = {}
     for e in prof.key_averages():
@@ -550,6 +733,306 @@ def serve_candidates(module, img, threshold):
         nms_ops.nms_keep = real
     torch.cuda.synchronize()
     return captured["args"]
+
+
+# --------------------------------------------------------- training phases
+
+TRAIN_B = 16
+# the card's fused step against its autograd step, and the card's B 2
+# step against the CPU's: gradients and updates within this share of the
+# largest entry of their kind, losses at this relative tolerance. float32
+# 1-ulp differences of conv sums grow ~1e3x through the train-mode BN
+# layers at random init (`tests/test_torch_train.py` holds the port to
+# JAX on the CPU at the same scaled tolerance)
+TRAIN_TOL = 1e-3
+TRAIN_LOSS_RTOL = 1e-3
+
+
+def _launch_counters():
+    from yolox_tpu_torch.ops.conv_bwd import main_1x1, reduce_sums
+    from yolox_tpu_torch.ops.nms_kernel import nms_keep
+    from yolox_tpu_torch.ops.stem import stem_conv_bn_act
+
+    return {"reduce_sums": reduce_sums, "main_1x1": main_1x1,
+            "stem": stem_conv_bn_act, "nms": nms_keep}
+
+
+def phase_conv_bwd(shapes):
+    """K3 and K4 against their plain versions at every shape, B 16, float32
+    and bf16. Returns the float32 max abs errors {"k3", "k4"}."""
+    import torch
+
+    errs, worst = {"k3": 0.0, "k4": 0.0}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for i, (ci, co, h, w) in enumerate(shapes):
+            r = check_conv_bwd(conv_bwd_case(100 + i, TRAIN_B, ci, co, h, w,
+                                             dtype, "cuda"))
+            for k in ("k3", "k4"):
+                if dtype == torch.float32:
+                    errs[k] = max(errs[k], r[k][0])
+                worst[f"{k} {name}"] = max(worst.get(f"{k} {name}", 0.0),
+                                           r[k][1])
+    log(f"K3 / K4 match their plain versions at all {len(shapes)} shapes "
+        f"(B {TRAIN_B}): float32 max abs error K3 {errs['k3']:.3g}, K4 "
+        f"{errs['k4']:.3g}; worst error over tolerance "
+        + json.dumps({k: round(v, 4) for k, v in worst.items()}))
+    return errs
+
+
+def phase_train(cfg, x, labels, n_kernel_convs):
+    """The main training path: 3 fused steps in float32 and 3 in bf16 from
+    seeded yolox-s, the launch counters set to 0 just before each step and
+    read just after. Returns the launches over the 6 steps."""
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.core import init_train_state, make_train_step
+
+    counters = _launch_counters()
+    want = {"reduce_sums": n_kernel_convs, "main_1x1": n_kernel_convs,
+            "stem": 0, "nms": 0}
+    total = dict.fromkeys(counters, 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        module = YoloxModule.from_config(cfg, rng_seed=4321)
+        state = init_train_state(module)
+        step = make_train_step(module, cfg.num_classes, compute_dtype=dtype,
+                               fused_bwd=True)
+        for i in range(3):
+            torch.cuda.synchronize()
+            for f in counters.values():
+                f.launches = 0
+            state, losses = step(state, x, labels, 0.01)
+            torch.cuda.synchronize()
+            n = {k: f.launches for k, f in counters.items()}
+            vals = {k: round(float(v), 5) for k, v in losses.items()}
+            log(f"train step {i} {str(dtype).split('.')[-1]} fused: "
+                f"launches {n} losses {vals}")
+            if n != want:
+                raise AssertionError(f"a training step launched {n}, want "
+                                     f"{want}")
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise AssertionError("a training step gave a non-finite loss")
+            for k in total:
+                total[k] += n[k]
+    return total
+
+
+def _held_step(module, x, labels, assignment, fused, num_classes):
+    """One float32 step without EMA on a held assignment: (losses,
+    gradients as the first step's momentum buffers, parameter updates)."""
+    from yolox_tpu_torch.core import init_train_state, make_train_step
+
+    state = init_train_state(module, use_ema=False)
+    step = make_train_step(module, num_classes, use_ema=False,
+                           fused_bwd=fused)
+    before = {n: p.detach().clone() for n, p in module.named_parameters()}
+    state, losses = step(state, x, labels, 0.01, assignment=assignment)
+    grads = {n: state.optimizer.state[p]["momentum_buffer"]
+             for n, p in module.named_parameters()}
+    updates = {n: p.detach() - before[n] for n, p in module.named_parameters()}
+    return {k: float(v) for k, v in losses.items()}, grads, updates
+
+
+def _assignment(module, x, labels, num_classes):
+    """SimOTA on a train-mode forward of a copy of `module` (its BN
+    statistics stay as they are)."""
+    import copy
+
+    import torch
+
+    from yolox_tpu_torch.models.assign import assign_batch
+
+    dev = module.device
+    with torch.no_grad():
+        head = copy.deepcopy(module).train().forward_train(
+            torch.as_tensor(x).to(dev))
+        return assign_batch(head, torch.as_tensor(labels).to(dev),
+                            num_classes)
+
+
+def _losses_close(got, want):
+    return max(abs(got[k] - want[k]) / (TRAIN_LOSS_RTOL * max(abs(want[k]),
+                                                              1e-12))
+               for k in want)
+
+
+def phase_train_parity(cfg, x, labels):
+    """With one assignment held fixed: the fused step's gradients against
+    the autograd step's on the card (B 16), and one B 2 step on the card
+    against the CPU's (plain versions)."""
+    import copy
+
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+
+    base = YoloxModule.from_config(cfg, rng_seed=4321)
+    xg, lg = torch.from_numpy(x).cuda(), torch.from_numpy(labels).cuda()
+    held = _assignment(base, xg, lg, cfg.num_classes)
+    l_f, g_f, _ = _held_step(copy.deepcopy(base), xg, lg, held, True,
+                             cfg.num_classes)
+    l_a, g_a, _ = _held_step(copy.deepcopy(base), xg, lg, held, False,
+                             cfg.num_classes)
+    r_grad = tensors_close(g_f, g_a, TRAIN_TOL)
+    r_loss = _losses_close(l_f, l_a)
+    log(f"held assignment ({int(held['num_fg'].sum())} fg): fused vs autograd "
+        f"step on the card, gradients at {r_grad:.3g} and losses at "
+        f"{r_loss:.3g} of their tolerances; total_loss {l_f['total_loss']:.6f}"
+        f" vs {l_a['total_loss']:.6f}")
+    if r_grad > 1 or r_loss > 1:
+        raise AssertionError("the fused step's gradients disagree with "
+                             "autograd's")
+
+    cpu = YoloxModule.from_config(cfg, rng_seed=4321, device="cpu")
+    gpu = YoloxModule.from_config(cfg, rng_seed=4321)
+    held = _assignment(cpu, x[:2], labels[:2], cfg.num_classes)
+    t0 = time.perf_counter()
+    l_c, _, u_c = _held_step(cpu, x[:2], labels[:2], held, True,
+                             cfg.num_classes)
+    cpu_s = time.perf_counter() - t0
+    l_g, _, u_g = _held_step(gpu, x[:2], labels[:2],
+                             {k: v.cuda() for k, v in held.items()}, True,
+                             cfg.num_classes)
+    r_upd = tensors_close({k: v.cpu() for k, v in u_g.items()}, u_c, TRAIN_TOL)
+    r_loss = _losses_close(l_g, l_c)
+    log(f"B 2 step, card vs CPU ({cpu_s:.1f} s on the CPU): updates at "
+        f"{r_upd:.3g} and losses at {r_loss:.3g} of their tolerances; "
+        f"total_loss {l_g['total_loss']:.6f} vs {l_c['total_loss']:.6f}")
+    if r_upd > 1 or r_loss > 1:
+        raise AssertionError("the card's training step disagrees with the "
+                             "CPU's")
+
+
+def phase_train_times(cfg, x, labels):
+    """Median B 16 step time (CUDA events, after 2 warm-up steps) for
+    float32 and bf16, `fused_bwd` on and off; device busy share and peak
+    memory beside each."""
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.core import init_train_state, make_train_step
+
+    xg, lg = torch.from_numpy(x).cuda(), torch.from_numpy(labels).cuda()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for fused in (True, False):
+            module = YoloxModule.from_config(cfg, rng_seed=4321)
+            state = init_train_state(module)
+            step = make_train_step(module, cfg.num_classes,
+                                   compute_dtype=dtype, fused_bwd=fused)
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):
+                state, _ = step(state, xg, lg, 0.01)
+            samples = []
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                state, _ = step(state, xg, lg, 0.01)
+                end.record()
+                torch.cuda.synchronize()
+                samples.append(start.elapsed_time(end))
+            med = float(np.median(samples))
+            key = (f"{str(dtype).split('.')[-1]}_"
+                   f"{'fused' if fused else 'autograd'}")
+            out[key] = {"median_ms": med, "img_per_s": 1e3 * TRAIN_B / med,
+                        "samples_ms": samples,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            dev_ms, top = device_time(lambda: step(state, xg, lg, 0.01))
+            if top:
+                out[key]["device_ms"] = dev_ms
+                out[key]["device_busy"] = dev_ms / med
+            log(f"train step {key} B {TRAIN_B}: {out[key]}; device kernels "
+                "(ms per step): "
+                + json.dumps([(k[:60], round(v, 3)) for k, v in top[:8]]))
+            del module, state, step
+            torch.cuda.empty_cache()
+    return out
+
+
+def conv_bwd_times(shapes):
+    """K3 and K4 at every shape (B 16): ms per launch, plain ms, bound and
+    library yardstick, per dtype; with the per-step sums and the entries
+    at the largest and the most frequent shape."""
+    import collections
+
+    import torch
+
+    from yolox_tpu_torch.ops import conv_bwd as cb
+
+    def ch(v):
+        return v[None, :, None, None]
+
+    freq = collections.Counter(shapes).most_common(1)[0][0]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        rows = []
+        for i, (ci, co, h, w) in enumerate(shapes):
+            c = conv_bwd_case(200 + i, TRAIN_B, ci, co, h, w, dtype, "cuda")
+            x, wt, z, g_y = c["x"], c["w"], c["z"], c["g_y"]
+            gamma, beta, mean, inv = c["gamma"], c["beta"], c["mean"], c["inv"]
+            n = TRAIN_B * h * w
+            s = cb.reduce_sums(z, g_y, gamma, beta, mean, inv)
+            coeff = torch.stack([gamma, beta, gamma * inv, s[0] / n, s[1] / n,
+                                 mean, inv])
+            zh = (z.float() - ch(mean)) * ch(inv)
+            ga = g_y.float() * cb.act_grad("silu", zh * ch(gamma) + ch(beta))
+            g_z = (ch(gamma * inv) * (ga - ch(s[0] / n) - zh * ch(s[1] / n))
+                   ).to(dtype)
+            ga = ga.to(dtype)
+            w4 = wt[:, :, None, None]
+            iters = 5
+            r = {"shape": (ci, co, h, w)}
+            r["k3"] = {
+                "ms": cuda_ms(lambda: cb.reduce_sums(z, g_y, gamma, beta,
+                                                     mean, inv), iters, 1),
+                "plain_ms": cuda_ms(lambda: cb.reduce_sums_plain(
+                    z, g_y, gamma, beta, mean, inv), iters, 1),
+                # computes grad_input as well: more work than K3
+                "library_ms": cuda_ms(
+                    lambda: torch.ops.aten.native_batch_norm_backward(
+                        ga, z, gamma, None, None, mean, inv, True, 1e-3,
+                        [True, True, True]), iters, 1)}
+            r["k4"] = {
+                "ms": cuda_ms(lambda: cb.main_1x1(x, z, g_y, wt, coeff),
+                              iters, 1),
+                "plain_ms": cuda_ms(lambda: cb.main_1x1_plain(
+                    x, z, g_y, wt, coeff), iters, 1),
+                "library_ms": cuda_ms(lambda: (
+                    torch.nn.grad.conv2d_input(x.shape, w4, g_z),
+                    torch.nn.grad.conv2d_weight(x, w4.shape, g_z)), iters, 1)}
+            bounds = conv_bwd_bounds(TRAIN_B, ci, co, h * w,
+                                     x.element_size(), bf16)
+            for k in ("k3", "k4"):
+                t_b, t_o = bounds[k]
+                r[k]["bound_ms"] = max(t_b, t_o)
+                r[k]["bound_by"] = "bytes" if t_b >= t_o else "operations"
+            rows.append(r)
+            del c, x, wt, z, g_y, ga, g_z
+        name = str(dtype).split(".")[-1]
+        out[name] = {}
+        for k in ("k3", "k4"):
+            keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+            total = {q: sum(r[k][q] for r in rows) for q in keys}
+            by_bytes = sum(r[k]["bound_ms"] for r in rows
+                           if r[k]["bound_by"] == "bytes")
+            total["bound_by"] = ("bytes" if by_bytes >= total["bound_ms"] / 2
+                                 else "operations")
+            work = (lambda r: r["shape"][1] * r["shape"][2] * r["shape"][3]) \
+                if k == "k3" else (lambda r: np.prod(r["shape"]))
+            big = max(rows, key=work)
+            common = next(r for r in rows if r["shape"] == freq)
+            out[name][k] = {
+                "per_step": total,
+                "largest": {"shape": big["shape"], **big[k]},
+                "most_frequent": {"shape": freq,
+                                  "count": shapes.count(freq), **common[k]}}
+            log(f"K{3 if k == 'k3' else 4} {name} B {TRAIN_B}: "
+                + json.dumps(out[name][k]))
+    return out
 
 
 def main() -> int:
@@ -591,6 +1074,20 @@ def main() -> int:
     launches, gpu_mod, threshold = phase_serve(cfg, rng)
     times = phase_times(rng, gpu_mod, wb, scale, bias, threshold)
 
+    shapes = kernel_conv_shapes(gpu_mod)
+    log(f"{len(shapes)} 1x1 SiLU convs of yolox-s take K3 / K4: "
+        + json.dumps(sorted(set(shapes))))
+    if len(shapes) != 43:
+        raise AssertionError("yolox-s has 43 1x1 SiLU BaseConvs")
+    del gpu_mod, stem_mod
+    conv_errs = phase_conv_bwd(shapes)
+    x_train = rng.uniform(0, 255, (TRAIN_B, 640, 640, 3)).astype(np.float32)
+    labels = synthetic_labels(rng, TRAIN_B)
+    train_launches = phase_train(cfg, x_train, labels, len(shapes))
+    phase_train_parity(cfg, x_train, labels)
+    train_times = phase_train_times(cfg, x_train, labels)
+    cb_times = conv_bwd_times(shapes)
+
     kernels = []
     for name, source, replaces, n, err, t in (
             ("stem_conv_bn_act", "yolox_tpu_torch/csrc/stem.cu",
@@ -608,7 +1105,24 @@ def main() -> int:
             "b32": {k: t[32][k] for k in ("ms", "plain_ms", "bound_ms",
                                           "library_ms")},
         })
+    for name, key, line, err in (
+            ("reduce_sums", "k3", 123, conv_errs["k3"]),
+            ("main_1x1", "k4", 162, conv_errs["k4"])):
+        t = cb_times["float32"][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "yolox_tpu_torch/csrc/conv_bwd.cu",
+            "replaces": f"yolox_tpu/ops/pallas_conv_bwd.py:{line}",
+            "launches": train_launches[name], "max_abs_err": err,
+            **{q: t["per_step"][q] for q in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+            "unit": f"sum over the {len(shapes)} launches of one B "
+                    f"{TRAIN_B} float32 training step",
+            "largest": t["largest"], "most_frequent": t["most_frequent"],
+            "bf16": cb_times["bfloat16"][key],
+        })
     log(json.dumps({"serve": times["serve"]}))
+    log(json.dumps({"train": train_times}))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

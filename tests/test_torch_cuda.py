@@ -6,7 +6,9 @@ JAX, so on a machine without it run them past the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: K1 float32 at 1e-4 + 1e-6 |ref| (108-term sums reassociated),
-bf16 within one bf16 ulp; K2 bit-equal keep masks.
+bf16 within one bf16 ulp; K2 bit-equal keep masks; K3 and K4 as
+`chip_smoke.check_conv_bwd` states them (relative to each output's sum
+of |terms|).
 """
 
 import numpy as np
@@ -16,6 +18,8 @@ import torch
 from chip_smoke import (
     anchor_scores,
     assert_detections_match,
+    check_conv_bwd,
+    conv_bwd_case,
     gap_threshold,
     nms_edge_cases,
     random_boxes,
@@ -108,6 +112,41 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         stem_conv_bn_act(x, wb.double(), sb, sb)
     with pytest.raises(ValueError, match="contiguous"):
         stem_conv_bn_act(x.transpose(1, 2), wb, sb, sb)
+
+
+# (Ci, Co, H, W) of yolox-s 1x1 convs at 640 px (dark2 CspLayer conv1,
+# a head stem, dark5 SPP conv2) and one with ragged tile edges
+CONV_BWD_SHAPES = [(64, 32, 160, 160), (256, 128, 40, 40),
+                   (1024, 512, 20, 20), (24, 40, 7, 9)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ci,co,h,w", CONV_BWD_SHAPES)
+def test_conv_bwd_kernels_match_plain(cuda, ci, co, h, w, dtype):
+    from yolox_tpu_torch.ops import conv_bwd as cb
+
+    case = conv_bwd_case(ci + co, 2, ci, co, h, w, getattr(torch, dtype), cuda)
+    before = (cb.reduce_sums.launches, cb.main_1x1.launches)
+    check_conv_bwd(case)
+    assert (cb.reduce_sums.launches, cb.main_1x1.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_conv_bwd_kernels_read_channel_slices(cuda):
+    """g_y as a channel slice of a concatenation's gradient (a batch
+    stride larger than C*H*W) is read in place, with the same result."""
+    from yolox_tpu_torch.ops import conv_bwd as cb
+
+    case = conv_bwd_case(5, 3, 32, 16, 12, 12, torch.float32, cuda)
+    wide = torch.randn((3, 48, 12, 12), device=cuda)
+    wide[:, 16:32] = case["g_y"]
+    case["g_y"] = wide[:, 16:32]
+    assert not case["g_y"].is_contiguous()
+    check_conv_bwd(case)
+    with pytest.raises(ValueError, match="dtype"):
+        cb.reduce_sums(case["z"].double(), case["g_y"].double(),
+                       case["gamma"], case["beta"], case["mean"],
+                       case["inv"])
 
 
 def test_serve_on_cuda_matches_cpu(cuda):

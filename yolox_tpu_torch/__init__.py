@@ -9,7 +9,9 @@ reference:
 
 The network is a set of NCHW `nn.Module`s with the upstream state-dict
 keys; the Focus stem and the NMS suppression run as hand-written CUDA
-kernels (`yolox_tpu_torch/csrc/`), built with nvcc on first use.
+kernels (`yolox_tpu_torch/csrc/`), built with nvcc on first use. Training
+(`yolox_tpu_torch.core.make_train_step`) runs the fused Conv-BN-SiLU
+backward of the 1x1 convs as two more such kernels.
 """
 
 from yolox_tpu_torch.version import __version__

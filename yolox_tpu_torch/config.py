@@ -2,9 +2,9 @@
 
 The same field table, defaults and `-D key=value` coercion as the JAX
 package's `yolox_tpu/config.py`, so configs and overrides carry over
-unchanged. This slice of the PyTorch port builds the serving model only:
-the dataset, loader, optimizer, scheduler, trainer and evaluator factories
-raise `NotImplementedError` until their modules are ported.
+unchanged. The port builds the model, the optimizer and the LR scheduler;
+the dataset, loader, trainer and evaluator factories raise
+`NotImplementedError` until their modules are ported.
 
 Fields that tune the JAX package's TPU layouts (`lane_fold*`,
 `serve_lane_fold`, `serve_stem_s2d*`, `train_stem_s2d`, `remat`) are kept
@@ -90,6 +90,7 @@ class YoloxConfig:
     serve_stem_s2d: Any = "auto"
     serve_stem_s2d_max_batch: int = 32
     train_stem_s2d: bool = False
+    # make_train_step's fused_bwd (the fused Conv-BN-act backward, K3/K4)
     fused_conv_bwd: bool = False
     device_augment: bool = False
     warmup_multiscale: bool = False
@@ -158,11 +159,29 @@ class YoloxConfig:
                         cache_img: Optional[str] = None):
         _later("the training data loader")
 
-    def get_optimizer(self, batch_size):
-        _later("the optimizer (training)")
+    def get_optimizer(self, batch_size, module):
+        """Three-group nesterov SGD over `module` (the reference's
+        `get_optimizer`; the JAX package returns the settings only)."""
+        from yolox_tpu_torch.core.optimizer import build_optimizer
+
+        lr = self.warmup_lr if self.warmup_epochs > 0 \
+            else self.basic_lr_per_img * batch_size
+        return build_optimizer(module, lr=lr, momentum=self.momentum,
+                               weight_decay=self.weight_decay)
 
     def get_lr_scheduler(self, lr, iters_per_epoch):
-        _later("the LR scheduler (training)")
+        from yolox_tpu_torch.utils.lr_scheduler import LRScheduler
+
+        return LRScheduler(
+            self.scheduler,
+            lr,
+            iters_per_epoch,
+            self.max_epoch,
+            warmup_epochs=self.warmup_epochs,
+            warmup_lr_start=self.warmup_lr,
+            no_aug_epochs=self.no_aug_epochs,
+            min_lr_ratio=self.min_lr_ratio,
+        )
 
     def get_eval_dataset(self, **kwargs):
         _later("the evaluation dataset")

@@ -1,0 +1,11 @@
+"""Training core: the train step and the optimizer."""
+
+from yolox_tpu_torch.core.optimizer import build_optimizer
+from yolox_tpu_torch.core.train_step import (
+    TrainState,
+    init_train_state,
+    make_train_step,
+)
+
+__all__ = ["TrainState", "build_optimizer", "init_train_state",
+           "make_train_step"]

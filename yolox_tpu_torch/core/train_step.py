@@ -1,0 +1,113 @@
+"""The training step: forward, SimOTA losses, backward, SGD, EMA and BN
+statistics, on one device.
+
+The PyTorch counterpart of the JAX package's `yolox_tpu/core/train_step.py`
+(`init_train_state`, `make_train_step`), with the same semantics in
+PyTorch idiom: the module trains in place in train mode, BatchNorm layers
+update their running statistics in the forward, `torch.optim.SGD`
+(nesterov) holds the momentum, and `ModelEMA` the averaged model.
+
+- BN: momentum 0.03, unbiased running variance, `num_batches_tracked`
+  incremented (`models/blocks.py`).
+- `freeze_prefix`: BatchNorm layers whose path starts with it run in eval
+  mode (running statistics, no update), and parameters under it keep their
+  values and momentum (their gradients are dropped before the SGD step),
+  as the reference's `freeze_module` does.
+- `compute_dtype` bfloat16: master weights stay float32, each conv casts
+  its weight to the activation dtype, BN statistics are float32, and the
+  head's outputs are promoted to float32 before the losses.
+- `fused_bwd`: every BaseConv runs the fused-backward Function
+  (`ops/conv_bwd.py`), whose 1x1 SiLU convs take the kernels K3 and K4.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from yolox_tpu_torch.core.optimizer import build_optimizer, set_hyperparams
+from yolox_tpu_torch.models.assign import assign_batch, losses_given_assignment
+from yolox_tpu_torch.utils.ema import ModelEMA
+
+
+@dataclass
+class TrainState:
+    """The module being trained, its optimizer, its EMA and the step count
+    (the JAX state's params/stats, momentum, ema/ema_updates, step)."""
+
+    module: torch.nn.Module
+    optimizer: torch.optim.SGD
+    ema: Optional[ModelEMA]
+    step: int = 0
+
+
+def init_train_state(module, use_ema: bool = True) -> TrainState:
+    """Wrap `module` (trained in place) with a fresh three-group SGD (its
+    lr, momentum and weight decay are set by each step) and, with
+    `use_ema`, a float32 EMA copy."""
+    return TrainState(module, build_optimizer(module, lr=0.0),
+                      ModelEMA(module) if use_ema else None)
+
+
+def set_train_mode(module, freeze_prefix: Optional[str] = None) -> None:
+    """Train mode, with BatchNorm under `freeze_prefix` in eval mode."""
+    module.train()
+    if freeze_prefix:
+        for name, m in module.named_modules():
+            if (isinstance(m, torch.nn.BatchNorm2d)
+                    and name.startswith(freeze_prefix)):
+                m.eval()
+
+
+def make_train_step(module, num_classes: int, *, momentum: float = 0.9,
+                    weight_decay: float = 5e-4, ema_decay: float = 0.9998,
+                    use_ema: bool = True, compute_dtype=torch.float32,
+                    use_l1: bool = False, freeze_prefix: Optional[str] = None,
+                    num_candidates: Optional[int] = None,
+                    fused_bwd: bool = False):
+    """Returns step(state, x, labels, lr, assignment=None) -> (state,
+    losses).
+
+    x: (B, H, W, 3) float 0-255 pixels, NHWC; labels: (B, M, 5) rows of
+    (cls, cx, cy, w, h), zero rows padding; both numpy or tensors, moved to
+    the module's device. losses: total_loss, iou_loss, l1_loss, conf_loss,
+    cls_loss, num_fg, cand_overflow as 0-d tensors on the device.
+    `assignment`: a SimOTA result (`models/assign.py:assign_batch`) to use
+    instead of assigning anew; it holds the discrete decisions fixed where
+    two runs are compared.
+    """
+
+    def step(state: TrainState, x, labels, lr, assignment=None):
+        if state.module is not module:
+            raise ValueError("the state wraps another module than this step")
+        if use_ema and state.ema is None:
+            raise ValueError("use_ema needs a state made with use_ema=True")
+        set_train_mode(module, freeze_prefix)
+        dev = next(module.parameters()).device
+        x = torch.as_tensor(x).to(dev, compute_dtype)
+        labels = torch.as_tensor(labels).to(dev, torch.float32)
+
+        head_out = module.forward_train(x, fused_bwd=fused_bwd)
+        if assignment is None:
+            assignment = assign_batch(head_out, labels, num_classes,
+                                      num_candidates)
+        losses = losses_given_assignment(head_out, labels, assignment,
+                                         num_classes, use_l1)
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        losses["total_loss"].backward()
+        if freeze_prefix:
+            for name, p in module.named_parameters():
+                if name.startswith(freeze_prefix):
+                    p.grad = None  # SGD skips it: value and momentum stay
+        set_hyperparams(opt, lr=lr, momentum=momentum,
+                        weight_decay=weight_decay)
+        opt.step()
+        state.step += 1
+        if use_ema:
+            state.ema.update(module, ema_decay)
+        return state, {k: v.detach() for k, v in losses.items()}
+
+    return step

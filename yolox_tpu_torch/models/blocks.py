@@ -5,9 +5,15 @@ Module attribute names follow the upstream state-dict keys
 (`conv.weight`, `bn.running_mean`, ...), so an upstream `.pth` loads with
 `load_state_dict(strict=True)`.
 
-Eval mode only in this slice: BatchNorm normalizes with its running
-statistics (eps 1e-3, momentum 0.03, the values the pretrained checkpoints
-were trained with).
+BatchNorm uses eps 1e-3 and momentum 0.03 (the values the pretrained
+checkpoints were trained with). In eval mode it normalizes with its running
+statistics. In train mode (`BaseConv._forward_train`) it follows the JAX
+package's `batch_norm` exactly: two-pass batch mean and biased variance in
+f32 (f64 for f64 activations), the running variance updated with the
+unbiased estimate, `num_batches_tracked` incremented; a BatchNorm put in
+eval mode inside a training module (a frozen prefix) normalizes with its
+running statistics and leaves them as they are. Train mode keeps f32
+master weights: each conv casts its weight to the activation's dtype.
 
 Every block has an `init_params(rng)` that draws its random weights from a
 numpy Generator in the same order and with the same formulas as the JAX
@@ -23,6 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from yolox_tpu_torch.ops import conv_bwd
 from yolox_tpu_torch.ops.stem import stem_conv_bn_act
 
 BN_EPS = 1e-3
@@ -86,6 +93,31 @@ def init_children(rng: np.random.Generator, *mods: nn.Module) -> None:
         m.init_params(rng)
 
 
+def batch_norm_train(z, gamma, beta):
+    """Train-mode BN of NCHW `z` with the JAX package's formulas
+    (`conv_bwd.batch_stats`), then z * scale + bias with scale and bias
+    cast to z's dtype. Returns (y, mean, var)."""
+    mean, var, _ = conv_bwd.batch_stats(z)
+    return _affine(z, gamma, beta, mean, var), mean, var
+
+
+def _affine(z, gamma, beta, mean, var):
+    inv = torch.rsqrt(var.to(conv_bwd.stat_dtype(z.dtype)) + BN_EPS)
+    scale = (gamma * inv).to(z.dtype)
+    bias = (beta - mean * gamma * inv).to(z.dtype)
+    return z * conv_bwd.per_channel(scale) + conv_bwd.per_channel(bias)
+
+
+@torch.no_grad()
+def update_running_stats(bn: nn.BatchNorm2d, mean, var, n: int) -> None:
+    """torch's train-mode update: momentum 0.03, unbiased running variance."""
+    m = BN_MOMENTUM
+    unbiased = var * (n / max(n - 1, 1))
+    bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+    bn.running_var.copy_((1 - m) * bn.running_var + m * unbiased)
+    bn.num_batches_tracked.add_(1)
+
+
 class BaseConv(nn.Module):
     """Conv2d -> BatchNorm -> activation (`network_blocks.py:27-52`)."""
 
@@ -95,6 +127,10 @@ class BaseConv(nn.Module):
                               groups=groups, bias=False)
         self.bn = nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = get_activation(act)
+        self.act_name = act
+        # train mode: route through the fused-backward Function
+        # (`ops/conv_bwd.py`); set by `YoloxModule.forward_train`
+        self.fused_bwd = False
 
     def init_params(self, rng):
         c = self.conv
@@ -103,7 +139,29 @@ class BaseConv(nn.Module):
         _reset_bn(self.bn)
 
     def forward(self, x):
+        if self.training:
+            return self._forward_train(x)
         return self.act(self.bn(self.conv(x)))
+
+    def _forward_train(self, x):
+        c, bn = self.conv, self.bn
+        if not bn.training:  # frozen: running statistics, no update
+            z = F.conv2d(x, c.weight.to(x.dtype), None, c.stride, c.padding,
+                         1, c.groups)
+            return self.act(_affine(z, bn.weight, bn.bias, bn.running_mean,
+                                    bn.running_var))
+        if self.fused_bwd:
+            y, mean, var = conv_bwd.fused_conv_bn_act(
+                x, c.weight, bn.weight, bn.bias, c.stride[0], c.groups,
+                self.act_name)
+        else:
+            z = F.conv2d(x, c.weight.to(x.dtype), None, c.stride, c.padding,
+                         1, c.groups)
+            y, mean, var = batch_norm_train(z, bn.weight, bn.bias)
+            y = self.act(y)
+        update_running_stats(bn, mean, var, y.shape[0] * y.shape[2]
+                             * y.shape[3])
+        return y
 
     def bn_fold(self):
         """Eval-mode BN as float32 (scale, bias): y = conv * scale + bias."""
@@ -210,14 +268,17 @@ def fold_focus_weight(w: torch.Tensor) -> torch.Tensor:
 
 
 class Focus(nn.Module):
-    """Space-to-depth 2x2 then conv (`network_blocks.py:186-208`), run as
-    the fused stem kernel K1 (`yolox_tpu_torch/ops/stem.py`).
+    """Space-to-depth 2x2 then conv (`network_blocks.py:186-208`).
 
-    Takes the NHWC image (B, H, W, 3), uint8 or float, and returns the NCHW
-    activation (B, C, H/2, W/2) in the module's dtype. The k x k conv on
-    the space-to-depth image is computed as one 2k x 2k stride-2 conv on
-    the raw image with the folded kernel; the checkpoint layout is
-    untouched.
+    Takes the NHWC image (B, H, W, 3) and returns the NCHW activation
+    (B, C, H/2, W/2). In eval mode it runs as the fused stem kernel K1
+    (`yolox_tpu_torch/ops/stem.py`) on a uint8 or float image, in the
+    module's dtype: the k x k conv on the space-to-depth image is one
+    2k x 2k stride-2 conv on the raw image with the folded kernel. K1 folds
+    the running statistics and has no gradient, so train mode runs the
+    plain differentiable path instead: space-to-depth in the quadrant
+    order TL, BL, TR, BR, then the BaseConv with batch statistics, on a
+    float image. The checkpoint layout is untouched.
     """
 
     def __init__(self, cin, cout, ksize=1, stride=1, act="silu"):
@@ -231,6 +292,11 @@ class Focus(nn.Module):
         self.conv.init_params(rng)
 
     def forward(self, x):
+        if self.training:
+            x = x.permute(0, 3, 1, 2)
+            return self.conv(torch.cat([x[..., ::2, ::2], x[..., 1::2, ::2],
+                                        x[..., ::2, 1::2], x[..., 1::2, 1::2]],
+                                       dim=1))
         scale, bias = self.conv.bn_fold()
         wb = fold_focus_weight(self.conv.conv.weight.float()).contiguous()
         return stem_conv_bn_act(x, wb, scale, bias, self.act_name,

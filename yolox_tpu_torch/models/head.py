@@ -15,6 +15,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from yolox_tpu_torch.models.blocks import (
     BaseConv,
@@ -62,6 +63,11 @@ class _PredConv(nn.Conv2d):
         else:
             b = init_conv_bias(rng, 1, self.in_channels, self.out_channels)
         _set(self.bias, b)
+
+    def forward(self, x):
+        # the weight takes the activation's dtype (f32 master weights of a
+        # bf16 train step; a no-op when they agree)
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class YoloxHead(nn.Module):
@@ -144,6 +150,37 @@ class YoloxHead(nn.Module):
         outs, grids, strides = self.forward_raw_levels(xin)
         return (torch.cat(outs, dim=1), torch.cat(grids, dim=0),
                 torch.cat(strides, dim=0))
+
+    def forward_train(self, xin):
+        """Training forward (`head.py:212-242`). Returns a dict:
+          outputs (B, A, 5+C): xy/wh decoded to image space, obj/cls raw
+            logits, in the activation dtype;
+          origin_reg (B, A, 4): raw reg predictions (grid space), for L1;
+          x_shifts, y_shifts, expanded_strides (A,): per-anchor grid cell
+            and stride.
+        Anchors run row-major per level, levels in stride order 8, 16, 32.
+        """
+        outs, origin, xs, ys, es = [], [], [], [], []
+        for (reg, obj, cls), stride in zip(self._level_outputs(xin),
+                                           self.strides):
+            h, w = reg.shape[2:]
+            out = torch.cat([reg, obj, cls], dim=1).flatten(2).transpose(1, 2)
+            grid = level_grid(h, w, out.dtype, out.device)
+            xy = (out[..., 0:2] + grid[None]) * stride
+            wh = torch.exp(out[..., 2:4]) * stride
+            outs.append(torch.cat([xy, wh, out[..., 4:]], dim=-1))
+            origin.append(reg.flatten(2).transpose(1, 2))
+            xs.append(grid[:, 0])
+            ys.append(grid[:, 1])
+            es.append(torch.full((h * w,), stride, dtype=out.dtype,
+                                 device=out.device))
+        return {
+            "outputs": torch.cat(outs, dim=1),
+            "origin_reg": torch.cat(origin, dim=1),
+            "x_shifts": torch.cat(xs),
+            "y_shifts": torch.cat(ys),
+            "expanded_strides": torch.cat(es),
+        }
 
     def forward(self, xin):
         """Inference forward: decoded (B, n_anchors_all, 5 + num_classes),

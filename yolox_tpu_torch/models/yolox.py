@@ -6,7 +6,9 @@ and returns `Detections` dicts; `YoloxModule` is the network, an
 `nn.Module` with the upstream state-dict keys. Serving runs on one CUDA
 device: the Focus stem and the NMS suppression are the hand-written
 kernels K1 and K2, the other convolutions go to cuDNN, and nothing in
-`serve` waits for the device until the caller reads the result.
+`serve` waits for the device until the caller reads the result. In train
+mode `forward_train` is the training forward (`core/train_step.py` drives
+it); `forward` and `serve` are eval-mode paths.
 
 Entry points place the module on `cuda` unless the caller passes
 `device="cpu"`; with no CUDA device and no device asked for they raise.
@@ -27,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from yolox_tpu_torch.config import YoloxConfig
+from yolox_tpu_torch.models.blocks import BaseConv
 from yolox_tpu_torch.models.head import YoloxHead
 from yolox_tpu_torch.models.pafpn import YoloPafpn
 from yolox_tpu_torch.models.processor import Detections, YoloxProcessor
@@ -143,7 +146,7 @@ class Yolox:
 
 
 class YoloxModule(nn.Module):
-    """The network: PAFPN backbone + decoupled head, eval mode only."""
+    """The network: PAFPN backbone + decoupled head. Built in eval mode."""
 
     def __init__(self, backbone: Optional[YoloPafpn] = None,
                  head: Optional[YoloxHead] = None,
@@ -190,13 +193,6 @@ class YoloxModule(nn.Module):
             raise ValueError(f"dtype must be one of {_DTYPES}, got {dtype}")
         return self.to(dtype)
 
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError(
-                "training is not ported to yolox_tpu_torch yet (a later "
-                "slice of the port brings it; see ROADMAP.md)")
-        return super().train(False)
-
     @property
     def dtype(self) -> torch.dtype:
         return self.head.cls_preds[0].weight.dtype
@@ -212,6 +208,9 @@ class YoloxModule(nn.Module):
         tensor -> a contiguous NHWC tensor on the module's device: uint8
         stays uint8 (the stem kernel reads it), floats take the module's
         dtype."""
+        if self.training:
+            raise RuntimeError("forward and serve are eval-mode paths; call "
+                               ".eval() first (forward_train trains)")
         x = torch.as_tensor(x)
         if x.dim() == 3:
             x = x[None]
@@ -227,6 +226,20 @@ class YoloxModule(nn.Module):
         """Eval forward: decoded (B, n_anchors, 5 + num_classes) float32."""
         fpn_outs = self.backbone(self._image_batch(x))
         return self.head(fpn_outs).float()
+
+    def forward_train(self, x, fused_bwd: bool = False):
+        """Train-mode forward (the JAX package's `apply_train`): x is the
+        (B, H, W, 3) float image batch on the module's device, in the
+        compute dtype; returns `YoloxHead.forward_train`'s dict. BatchNorm
+        layers in train mode update their running statistics. `fused_bwd`
+        routes every BaseConv through the fused-backward Function
+        (`ops/conv_bwd.py`; its 1x1 SiLU convs take kernels K3 and K4)."""
+        if not self.training:
+            raise RuntimeError("forward_train needs train mode: call .train()")
+        for m in self.modules():
+            if isinstance(m, BaseConv):
+                m.fused_bwd = fused_bwd
+        return self.head.forward_train(self.backbone(x))
 
     @torch.inference_mode()
     def serve(self, x, conf_thre: float = 0.5, nms_thre: float = 0.65,

@@ -32,7 +32,8 @@ _OUT_CODES = {torch.float32: 1, torch.bfloat16: 2}
 _ACT_CODES = {"silu": 0, "relu": 1, "lrelu": 2}
 
 
-def _act(y: torch.Tensor, act: str) -> torch.Tensor:
+def activate(y: torch.Tensor, act: str) -> torch.Tensor:
+    """The activations of the port's blocks as functions."""
     if act == "silu":
         return F.silu(y)
     if act == "relu":
@@ -50,7 +51,7 @@ def stem_conv_bn_act_plain(x, wb, scale, bias, act: str = "silu",
     xf = x.permute(0, 3, 1, 2).float()
     y = F.conv2d(xf, wb.float(), stride=2, padding=k - 1)
     y = y * scale.float()[:, None, None] + bias.float()[:, None, None]
-    return _act(y, act).to(out_dtype)
+    return activate(y, act).to(out_dtype)
 
 
 def _check(x, wb, scale, bias, act, out_dtype):
