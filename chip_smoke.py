@@ -32,17 +32,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    synthetic labels (1-30 boxes an image in 120 padded rows), through
    `make_train_step(fused_bwd=True)`: 3 steps in float32 and 3 in bf16
    with finite losses and the launch counters read around each step (K3
-   and K4 43 times a step, K1 and K2 never); with one SimOTA assignment
+   and K4 43 times a step, K1, K2 and K5 never); with one SimOTA assignment
    held fixed, the fused step's gradients against the autograd step's
    (`fused_bwd=False`) on the card, and one B 2 step on the card against
    the same step on the CPU (plain versions); then step times for both
    `fused_bwd` settings in both dtypes, the device's busy share, and K3 /
    K4 times per launch and per step beside their plain versions, bounds
-   and cuDNN yardsticks.
+   and cuDNN yardsticks;
+8. the augmentation slice: K5, the shear kernel, bit-equal to its plain
+   version at the 640 px warp's two pass shapes (B 16, float32 and bf16,
+   affine shifts), on random per-row shifts (px 1 and 3) and on the
+   contract's edge shifts; `augment_with_draws` on the card against the
+   CPU on one set of draws (B 2, 640 px: images before HSV within
+   `AUG_IMG_TOL`, HSV within `AUG_HSV_TOL`, labels within
+   `AUG_LABEL_TOL`, rows exact); the augmented main path,
+   `make_augmented_train_step(fused_bwd=True)` on yolox-s at full width
+   and depth, 640 px, B 16, 3 steps in float32 and 3 in bf16 from a CUDA
+   generator, with the launch counters read around each step (K5 twice,
+   K3 and K4 43 times, K1 and K2 never); then the augmentation's time per
+   batch, the augmented step against the plain step on an augmented
+   batch, busy share and peak memory, and K5's times per launch and per
+   step beside its plain version, bound and the `F.grid_sample`
+   yardstick.
 
-Then JSON lines with the serve and training times and the kernels, the
-`nvidia-smi` name and power limit, and as the last line `{"ok": true,
-"device": {...}}`.
+Then JSON lines with the serve, training and augmentation times and the
+kernels, the `nvidia-smi` name and power limit, and as the last line
+`{"ok": true, "device": {...}}`.
 
 TF32 is turned off here (cuDNN and matmul) before any comparison with
 float32 references; the package itself never changes global flags.
@@ -751,10 +766,11 @@ TRAIN_LOSS_RTOL = 1e-3
 def _launch_counters():
     from yolox_tpu_torch.ops.conv_bwd import main_1x1, reduce_sums
     from yolox_tpu_torch.ops.nms_kernel import nms_keep
+    from yolox_tpu_torch.ops.shear_kernel import shear_x
     from yolox_tpu_torch.ops.stem import stem_conv_bn_act
 
     return {"reduce_sums": reduce_sums, "main_1x1": main_1x1,
-            "stem": stem_conv_bn_act, "nms": nms_keep}
+            "stem": stem_conv_bn_act, "nms": nms_keep, "shear_x": shear_x}
 
 
 def phase_conv_bwd(shapes):
@@ -791,7 +807,7 @@ def phase_train(cfg, x, labels, n_kernel_convs):
 
     counters = _launch_counters()
     want = {"reduce_sums": n_kernel_convs, "main_1x1": n_kernel_convs,
-            "stem": 0, "nms": 0}
+            "stem": 0, "nms": 0, "shear_x": 0}
     total = dict.fromkeys(counters, 0)
     for dtype in (torch.float32, torch.bfloat16):
         module = YoloxModule.from_config(cfg, rng_seed=4321)
@@ -904,6 +920,25 @@ def phase_train_parity(cfg, x, labels):
                              "CPU's")
 
 
+def _event_ms(fn, reps):
+    """Per-call CUDA-event times of fn() after 2 warm-up calls."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end))
+    return samples
+
+
 def phase_train_times(cfg, x, labels):
     """Median B 16 step time (CUDA events, after 2 warm-up steps) for
     float32 and bf16, `fused_bwd` on and off; device busy share and peak
@@ -922,18 +957,7 @@ def phase_train_times(cfg, x, labels):
             step = make_train_step(module, cfg.num_classes,
                                    compute_dtype=dtype, fused_bwd=fused)
             torch.cuda.reset_peak_memory_stats()
-            for _ in range(2):
-                state, _ = step(state, xg, lg, 0.01)
-            samples = []
-            for _ in range(5):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                torch.cuda.synchronize()
-                start.record()
-                state, _ = step(state, xg, lg, 0.01)
-                end.record()
-                torch.cuda.synchronize()
-                samples.append(start.elapsed_time(end))
+            samples = _event_ms(lambda: step(state, xg, lg, 0.01), 5)
             med = float(np.median(samples))
             key = (f"{str(dtype).split('.')[-1]}_"
                    f"{'fused' if fused else 'autograd'}")
@@ -1035,6 +1059,373 @@ def conv_bwd_times(shapes):
     return out
 
 
+# ----------------------------------------------------- augmentation phases
+
+# the card's augmentation against the CPU's on the same draws. The card
+# runs the interpolation products and the buffers between passes in bf16
+# (the CPU in float32): before HSV a pixel carries at most 8 bf16
+# roundings of values below 256 (0.5 each: the first product's output, its
+# and the second product's weights, h1, the border term and its sum, the
+# two shear passes), so it moves by at most 4.0 levels, the bound the JAX
+# package's bf16 test uses (`tests/test_device_augment.py`). HSV is then
+# held separately: the card's HSV of its own pre-HSV image against the
+# CPU's HSV of that image (float32 math on both), because the hue of a
+# near-gray pixel is ill-conditioned and the saturation gain (up to 30
+# levels) turns a 1-level difference there into up to ~20. Labels are
+# float32 math on both devices.
+AUG_IMG_TOL = 4.0
+AUG_HSV_TOL = 1e-2
+AUG_LABEL_TOL = 1e-3
+# K5 reads at most this |d shift / d row| in the 640 px warp (rotation
+# 10 deg + shear 2 x 2 deg: tan(14 deg) = 0.25; the Pallas kernel's limit
+# was 3 pixels over 7 rows)
+SHEAR_SLOPE = 0.42
+
+
+def warp_grid(s=640, degrees=10.0, shear=2.0):
+    """(margin, working grid rows) of the three-pass warp at out size s."""
+    from yolox_tpu_torch.ops.warp import margin_for
+
+    margin = margin_for(s, degrees, shear)
+    return margin, ((s + 2 * margin + 63) // 64) * 64
+
+
+def affine_shifts(rng, b, n, base, slope=SHEAR_SLOPE):
+    """(b, n) float32 shifts base + a*(i - base), |a| <= slope per row
+    sequence: the form the warp's y- and x-shear passes give K5."""
+    a = rng.uniform(-slope, slope, (b, 1))
+    return (base + a * (np.arange(n)[None] - base)).astype(np.float32)
+
+
+def shear_edge_shifts(b, n, k_max):
+    """(b, n) float32 shifts at the contract's edges: k_max (the second tap
+    reads the last column), k_max + 1.5 and -0.5 (extrapolation), and
+    integers (f = 0), in turn."""
+    edge = np.array([k_max, k_max + 1.5, -0.5, 0.0, float(k_max // 2),
+                     k_max + 1.0], np.float32)
+    return np.resize(edge, (b, n)).astype(np.float32)
+
+
+def shear_bound(rows, out_wl, px, elt_bytes):
+    """Least time of K5 on an H100 (ms) and what sets it: each output value
+    reads its row's window of out_wl + px values once and is written once,
+    plus one float32 shift a row; 4 float32 operations an output value."""
+    nbytes = rows * ((2 * out_wl + px) * elt_bytes + 4)
+    t_bytes = nbytes / H100_HBM_BYTES
+    t_ops = 4 * rows * out_wl / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def synthetic_tiles(rng, b, size=640, max_labels=60, num_classes=80):
+    """Device-augmentation inputs: (tiles (b, 5, size, size, 3) uint8,
+    tile_hw (b, 5, 2) float32, labels (b, 5, max_labels, 5) xyxy+cls). Each
+    tile holds random pixels over a random true size of at least half the
+    tile and 1-30 boxes, zero-padded."""
+    tiles = np.zeros((b, 5, size, size, 3), np.uint8)
+    hw = rng.integers(size // 2, size + 1, (b, 5, 2)).astype(np.float32)
+    labels = np.zeros((b, 5, max_labels, 5), np.float32)
+    for i in range(b):
+        for t in range(5):
+            h, w = (int(v) for v in hw[i, t])
+            tiles[i, t, :h, :w] = rng.integers(0, 256, (h, w, 3),
+                                               dtype=np.uint8)
+            n = int(rng.integers(1, min(30, max_labels) + 1))
+            bw, bh = rng.uniform(8, w / 2, n), rng.uniform(8, h / 2, n)
+            x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            labels[i, t, :n] = np.stack(
+                [x1, y1, x1 + bw, y1 + bh,
+                 rng.integers(0, num_classes, n)], 1)
+    return tiles, hw, labels
+
+
+def check_shear(name, img, shifts, out_w, px):
+    """K5 against its plain version on one input: bit-equal, else fail.
+    Returns the max abs difference (0)."""
+    import torch
+
+    from yolox_tpu_torch.ops.shear_kernel import shear_x, shear_x_plain
+
+    got = shear_x(img, shifts, out_w, px)
+    ref = shear_x_plain(img, shifts, out_w, px)
+    torch.cuda.synchronize()
+    ok = got.dtype == img.dtype and torch.equal(got, ref)
+    err = float((got.float() - ref.float()).abs().max())
+    log(f"K5 {name} {tuple(img.shape)} {img.dtype} px {px} -> out_w "
+        f"{out_w}: bit-equal {ok} (max |d| {err:.3g})")
+    if not ok:
+        raise AssertionError(f"K5 disagrees with its plain version: {name}")
+    return err
+
+
+def phase_shear(rng):
+    """K5 against its plain version: the 640 px warp's two pass shapes at
+    B 16 with affine shifts in float32 and bf16, random per-row shifts
+    without a slope bound at px 1 and 3, and the edge shifts."""
+    import torch
+
+    margin, wr = warp_grid()
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, rows, base in (("pass 2 (y-shear)", wr, margin),
+                                 ("pass 3 (x-shear)", 640, margin)):
+            img = torch.from_numpy(rng.uniform(0, 255, (TRAIN_B, rows,
+                                                        wr * 3)).astype(
+                np.float32)).cuda().to(dtype)
+            shifts = torch.from_numpy(affine_shifts(rng, TRAIN_B, rows,
+                                                    base)).cuda()
+            err = max(err, check_shear(name, img, shifts, 640, 3))
+        for px in (1, 3):
+            w, out_w = 700, 512
+            k_max = w - out_w - 2
+            img = torch.from_numpy(rng.uniform(0, 255, (4, 256, w * px))
+                                   .astype(np.float32)).cuda().to(dtype)
+            free = rng.uniform(-2.0, k_max + 3.0, (4, 256)).astype(np.float32)
+            err = max(err, check_shear(
+                "random shifts", img, torch.from_numpy(free).cuda(), out_w,
+                px))
+            err = max(err, check_shear("edge shifts", img, torch.from_numpy(
+                shear_edge_shifts(4, 256, k_max)).cuda(), out_w, px))
+    return err
+
+
+def augment_card_vs_cpu(tiles, hw, labels, draws, size):
+    """augment_with_draws on the card against the CPU (plain versions) on
+    one set of draws: the images before HSV (the draws' do_hsv off) within
+    AUG_IMG_TOL, the card's HSV against the CPU's HSV of the card's
+    pre-HSV images within AUG_HSV_TOL, labels within AUG_LABEL_TOL, the
+    label rows' order and padding exact. Returns the differences; fails
+    past a limit."""
+    import torch
+
+    from yolox_tpu_torch.data import augment_with_draws
+    from yolox_tpu_torch.data.device_augment import hsv_jitter
+
+    b = tiles.shape[0]
+    no_hsv = dict(draws, do_hsv=torch.zeros(b, dtype=torch.bool))
+    cpu = [torch.as_tensor(a) for a in (tiles, hw, labels)]
+    card = [a.cuda() for a in cpu]
+    out = {}
+    for name, d, kw in (("pre_hsv", no_hsv, dict(hsv_prob=0.5)),
+                        ("full", draws, {})):
+        out[name] = [augment_with_draws(*args, d, (size, size), **kw)
+                     for args in (cpu, card)]
+    (pre_c, _), (pre_g, _) = out["pre_hsv"]
+    (img_c, lab_c), (img_g, lab_g) = out["full"]
+    pre_g, img_g, lab_g = pre_g.cpu(), img_g.cpu(), lab_g.cpu()
+    hsv_ref = hsv_jitter(pre_g, draws["hsv_gains"].cpu())
+    r = {"pre_hsv_max_abs": float((pre_g - pre_c).abs().max()),
+         "pre_hsv_mean_abs": float((pre_g - pre_c).abs().mean()),
+         "hsv_max_abs": float((img_g - hsv_ref).abs().max()),
+         "label_max_abs": float((lab_g - lab_c).abs().max()),
+         "full_max_abs": float((img_g - img_c).abs().max()),
+         "full_mean_abs": float((img_g - img_c).abs().mean()),
+         "label_rows": int((lab_c != 0).any(-1).sum())}
+    rows = torch.equal((lab_g != 0).any(-1), (lab_c != 0).any(-1))
+    log(f"augmentation B {b} {size} px, card vs CPU on the same draws: "
+        f"{json.dumps(r)}, rows exact {rows} (limits: pre-HSV "
+        f"{AUG_IMG_TOL}, HSV {AUG_HSV_TOL}, labels {AUG_LABEL_TOL})")
+    if not (r["pre_hsv_max_abs"] <= AUG_IMG_TOL
+            and r["hsv_max_abs"] <= AUG_HSV_TOL
+            and r["label_max_abs"] <= AUG_LABEL_TOL and rows
+            and r["label_rows"] > 0 and bool(torch.isfinite(img_g).all())):
+        raise AssertionError("the card's augmentation disagrees with the "
+                             "CPU's")
+    return r
+
+
+def phase_augment_parity(rng):
+    """device_augment_batch's draws, taken once on a CPU generator, applied
+    on the card and on the CPU at B 2, 640 px, default settings
+    (`augment_card_vs_cpu`)."""
+    import torch
+
+    from yolox_tpu_torch.data import sample_augment_draws
+
+    tiles, hw, labels = synthetic_tiles(rng, 2)
+    draws = sample_augment_draws(2, torch.Generator().manual_seed(11),
+                                 (640, 640))
+    return augment_card_vs_cpu(tiles, hw, labels, draws, 640)
+
+
+def phase_train_aug(cfg, tiles, hw, labels, n_kernel_convs):
+    """The augmented main path: make_augmented_train_step on yolox-s,
+    640 px, B 16, fused_bwd, 3 steps in float32 and 3 in bf16 from a CUDA
+    generator; the launch counters set to 0 just before each step and read
+    just after. Returns the launches over the 6 steps."""
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.core import (
+        init_train_state,
+        make_augmented_train_step,
+    )
+
+    counters = _launch_counters()
+    want = {"shear_x": 2, "reduce_sums": n_kernel_convs,
+            "main_1x1": n_kernel_convs, "stem": 0, "nms": 0}
+    total = dict.fromkeys(counters, 0)
+    args = [torch.from_numpy(a).cuda() for a in (tiles, hw, labels)]
+    for dtype in (torch.float32, torch.bfloat16):
+        module = YoloxModule.from_config(cfg, rng_seed=4321)
+        state = init_train_state(module)
+        step = make_augmented_train_step(module, cfg.num_classes,
+                                         compute_dtype=dtype, fused_bwd=True)
+        gen = torch.Generator(device=args[0].device).manual_seed(5)
+        for i in range(3):
+            torch.cuda.synchronize()
+            for f in counters.values():
+                f.launches = 0
+            state, losses = step(state, *args, gen, 0.01, (640, 640))
+            torch.cuda.synchronize()
+            n = {k: f.launches for k, f in counters.items()}
+            vals = {k: round(float(v), 5) for k, v in losses.items()}
+            log(f"augmented step {i} {str(dtype).split('.')[-1]}: launches "
+                f"{n} losses {vals}")
+            if n != want:
+                raise AssertionError(f"an augmented step launched {n}, want "
+                                     f"{want}")
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise AssertionError("an augmented step gave a non-finite "
+                                     "loss")
+            if vals["num_fg"] <= 0:
+                raise AssertionError("an augmented step assigned no "
+                                     "foreground")
+            for k in total:
+                total[k] += n[k]
+        del module, state, step
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_aug_times(cfg, tiles, hw, labels):
+    """B 16, 640 px: augmentation ms per batch; the augmented step against
+    the plain step on an augmented batch (`make_train_step`), fused_bwd, both
+    dtypes, with the device's busy share and peak memory."""
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.core import (
+        init_train_state,
+        make_augmented_train_step,
+        make_train_step,
+    )
+    from yolox_tpu_torch.data import device_augment_batch
+
+    args = [torch.from_numpy(a).cuda() for a in (tiles, hw, labels)]
+    gen = torch.Generator(device=args[0].device).manual_seed(6)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        torch.cuda.reset_peak_memory_stats()
+        samples = _event_ms(lambda: device_augment_batch(
+            *args, gen, (640, 640), image_dtype=dtype), 5)
+        aug = {"median_ms": float(np.median(samples)), "samples_ms": samples,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        dev_ms, top = device_time(lambda: device_augment_batch(
+            *args, gen, (640, 640), image_dtype=dtype))
+        if top:
+            aug["device_ms"] = dev_ms
+            aug["device_busy"] = dev_ms / aug["median_ms"]
+        out[f"augment_{name}"] = aug
+        log(f"augmentation B {TRAIN_B} {name}: {aug}; device kernels (ms per "
+            "batch): " + json.dumps([(k[:60], round(v, 3))
+                                     for k, v in top[:8]]))
+        imgs, packed = device_augment_batch(*args, gen, (640, 640),
+                                            image_dtype=dtype)
+        for kind in ("augmented", "plain"):
+            module = YoloxModule.from_config(cfg, rng_seed=4321)
+            state = init_train_state(module)
+            if kind == "augmented":
+                step = make_augmented_train_step(
+                    module, cfg.num_classes, compute_dtype=dtype,
+                    fused_bwd=True)
+
+                def run():
+                    return step(state, *args, gen, 0.01, (640, 640))
+            else:
+                step = make_train_step(module, cfg.num_classes,
+                                       compute_dtype=dtype, fused_bwd=True)
+
+                def run():
+                    return step(state, imgs, packed, 0.01)
+            torch.cuda.reset_peak_memory_stats()
+            samples = _event_ms(run, 5)
+            med = float(np.median(samples))
+            r = {"median_ms": med, "img_per_s": 1e3 * TRAIN_B / med,
+                 "samples_ms": samples,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            dev_ms, top = device_time(run)
+            if top:
+                r["device_ms"] = dev_ms
+                r["device_busy"] = dev_ms / med
+            out[f"{kind}_step_{name}"] = r
+            log(f"{kind} step {name} fused B {TRAIN_B}: {r}; device kernels "
+                "(ms per step): " + json.dumps([(k[:60], round(v, 3))
+                                                for k, v in top[:8]]))
+            del module, state, step
+            torch.cuda.empty_cache()
+    return out
+
+
+def shear_times(rng):
+    """K5 at the 640 px warp's two pass shapes, B 16, bf16 (the card's
+    buffer dtype on the main path) and float32: ms per launch, plain ms,
+    bound and the F.grid_sample yardstick (the same two-tap row lerp on a
+    planar (B, 3, H, W) copy, align_corners=True; timed only), the time of
+    the transpose copy that pass 3 reads, and the per-step sums of the two
+    passes."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolox_tpu_torch.ops.shear_kernel import shear_x, shear_x_plain
+
+    margin, wr = warp_grid()
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        passes = {}
+        for key, rows in (("pass2", wr), ("pass3", 640)):
+            img = torch.from_numpy(rng.uniform(0, 255, (TRAIN_B, rows,
+                                                        wr * 3)).astype(
+                np.float32)).cuda().to(dtype)
+            shifts = torch.from_numpy(affine_shifts(rng, TRAIN_B, rows,
+                                                    margin)).cuda()
+            planar = img.reshape(TRAIN_B, rows, wr, 3).permute(
+                0, 3, 1, 2).contiguous()
+            gx = (torch.arange(640, device=img.device)[None, None]
+                  + shifts[..., None]) * (2.0 / (wr - 1)) - 1.0
+            gy = (torch.arange(rows, device=img.device) * (2.0 / (rows - 1))
+                  - 1.0)[None, :, None].expand_as(gx)
+            grid = torch.stack([gx, gy], -1).to(dtype)
+            t = {"ms": cuda_ms(lambda: shear_x(img, shifts, 640, 3), 20),
+                 "plain_ms": cuda_ms(lambda: shear_x_plain(img, shifts, 640,
+                                                           3), 5),
+                 "library_ms": cuda_ms(lambda: F.grid_sample(
+                     planar, grid, mode="bilinear", padding_mode="zeros",
+                     align_corners=True), 10)}
+            t["bound_ms"], t["bound_by"] = shear_bound(
+                TRAIN_B * rows, 640 * 3, 3, img.element_size())
+            t["shape"] = tuple(img.shape)
+            if key == "pass3":
+                # the contiguous transpose of pass 2's output that pass 3
+                # reads (`ops/warp.py:mosaic_affine_warp`)
+                h2 = torch.rand((TRAIN_B, wr, 640 * 3), device=img.device
+                                ).to(dtype)
+                t["transpose_ms"] = cuda_ms(lambda: h2.reshape(
+                    TRAIN_B, wr, 640, 3).transpose(1, 2).contiguous(), 20)
+                del h2
+            passes[key] = t
+            log(f"K5 {name} {key} {tuple(img.shape)}: {t}")
+            del img, planar, grid
+        step = {q: passes["pass2"][q] + passes["pass3"][q]
+                for q in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        step["bound_by"] = "bytes"
+        out[name] = {"per_step": step, **passes}
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1088,6 +1479,14 @@ def main() -> int:
     train_times = phase_train_times(cfg, x_train, labels)
     cb_times = conv_bwd_times(shapes)
 
+    shear_err = phase_shear(rng)
+    aug_parity = phase_augment_parity(rng)
+    tiles, tile_hw, tile_labels = synthetic_tiles(rng, TRAIN_B)
+    aug_launches = phase_train_aug(cfg, tiles, tile_hw, tile_labels,
+                                   len(shapes))
+    aug_times = phase_aug_times(cfg, tiles, tile_hw, tile_labels)
+    k5_times = shear_times(rng)
+
     kernels = []
     for name, source, replaces, n, err, t in (
             ("stem_conv_bn_act", "yolox_tpu_torch/csrc/stem.cu",
@@ -1121,8 +1520,23 @@ def main() -> int:
             "largest": t["largest"], "most_frequent": t["most_frequent"],
             "bf16": cb_times["bfloat16"][key],
         })
+    t = k5_times["bfloat16"]
+    kernels.append({
+        "name": "shear_x", "route": "cuda",
+        "source": "yolox_tpu_torch/csrc/warp.cu",
+        "replaces": "yolox_tpu/ops/pallas_warp.py:196",
+        "launches": aug_launches["shear_x"], "max_abs_err": shear_err,
+        **{q: t["per_step"][q] for q in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+        "unit": f"sum over the 2 launches (y- and x-shear) of one B "
+                f"{TRAIN_B} 640 px augmented step, bf16",
+        "pass2": t["pass2"], "pass3": t["pass3"],
+        "float32": k5_times["float32"],
+    })
     log(json.dumps({"serve": times["serve"]}))
     log(json.dumps({"train": train_times}))
+    log(json.dumps({"augment": {**aug_times, "card_vs_cpu": aug_parity,
+                                "launches": aug_launches}}))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ JAX, so on a machine without it run them past the suite's conftest:
 Tolerances: K1 float32 at 1e-4 + 1e-6 |ref| (108-term sums reassociated),
 bf16 within one bf16 ulp; K2 bit-equal keep masks; K3 and K4 as
 `chip_smoke.check_conv_bwd` states them (relative to each output's sum
-of |terms|).
+of |terms|); K5 bit-equal to its plain version; the card's augmentation
+against the CPU's on the same draws as `chip_smoke.augment_card_vs_cpu`
+states them.
 """
 
 import numpy as np
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 from chip_smoke import (
+    affine_shifts,
+    augment_card_vs_cpu,
     anchor_scores,
     assert_detections_match,
     check_conv_bwd,
@@ -23,7 +27,9 @@ from chip_smoke import (
     gap_threshold,
     nms_edge_cases,
     random_boxes,
+    shear_edge_shifts,
     spread_scores,
+    synthetic_tiles,
 )
 
 pytestmark = pytest.mark.cuda
@@ -169,3 +175,74 @@ def test_serve_on_cuda_matches_cpu(cuda):
     want = Yolox(cpu_mod, YoloxProcessor(cfg))(frames, threshold=thr)
     assert sum(len(d["labels"]) for d in want) > 10
     assert_detections_match(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("px", [1, 3])
+@pytest.mark.parametrize("shifts", ["affine", "random", "edge"])
+def test_shear_kernel_matches_plain(cuda, shifts, px, dtype):
+    from yolox_tpu_torch.ops.shear_kernel import shear_x, shear_x_plain
+
+    rng = np.random.default_rng(px)
+    b, h, w, out_w = 3, 200, 333, 250       # ragged against 256 threads
+    k_max = w - out_w - 2
+    img = torch.from_numpy(rng.uniform(0, 255, (b, h, w * px)).astype(
+        np.float32)).to(cuda, getattr(torch, dtype))
+    s = {"affine": lambda: affine_shifts(rng, b, h, k_max / 2),
+         "random": lambda: rng.uniform(-3, k_max + 4, (b, h)),
+         "edge": lambda: shear_edge_shifts(b, h, k_max)}[shifts]()
+    s = torch.from_numpy(np.asarray(s, np.float32)).to(cuda)
+    before = shear_x.launches
+    got = shear_x(img, s, out_w, px)
+    assert shear_x.launches == before + 1
+    ref = shear_x_plain(img, s, out_w, px)
+    torch.cuda.synchronize()
+    assert got.dtype == img.dtype and got.shape == (b, h, out_w * px)
+    assert torch.equal(got, ref)
+
+
+def test_shear_kernel_raises_on_what_it_does_not_take(cuda):
+    from yolox_tpu_torch.ops.shear_kernel import shear_x
+
+    img = torch.zeros((2, 8, 60), device=cuda)
+    s = torch.zeros((2, 8), device=cuda)
+    with pytest.raises(ValueError, match="out_w"):
+        shear_x(img, s, 19, px=3)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        shear_x(img.double(), s, 10, px=3)
+    with pytest.raises(ValueError, match="shifts must be float32"):
+        shear_x(img, s.double(), 10, px=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        shear_x(img.transpose(0, 1), s.t(), 10, px=3)
+
+
+def test_augmented_step_on_cuda(cuda):
+    """The card's augmentation against the CPU's on one set of draws, and
+    one augmented step of a small model on the card: K5 twice."""
+    from yolox_tpu_torch import YoloxConfig, YoloxModule
+    from yolox_tpu_torch.core import (
+        init_train_state,
+        make_augmented_train_step,
+    )
+    from yolox_tpu_torch.data import sample_augment_draws
+    from yolox_tpu_torch.ops.shear_kernel import shear_x
+
+    s = 128
+    tiles, hw, labels = (torch.from_numpy(a) for a in synthetic_tiles(
+        np.random.default_rng(0), 2, size=s, max_labels=8, num_classes=8))
+    draws = sample_augment_draws(2, torch.Generator().manual_seed(1), (s, s))
+    augment_card_vs_cpu(tiles, hw, labels, draws, s)
+
+    cfg = YoloxConfig.get_named_config("yolox_s")
+    cfg.depth, cfg.width, cfg.num_classes = 0.33, 0.125, 8
+    module = YoloxModule.from_config(cfg, rng_seed=0, device=cuda)
+    state = init_train_state(module)
+    step = make_augmented_train_step(module, 8, compute_dtype=torch.bfloat16,
+                                     fused_bwd=True)
+    before = shear_x.launches
+    state, losses = step(state, tiles, hw, labels,
+                         torch.Generator(device=cuda).manual_seed(2), 0.01,
+                         (s, s), (96, 96))
+    torch.cuda.synchronize()
+    assert shear_x.launches == before + 2
+    assert all(torch.isfinite(v).all() for v in losses.values())

@@ -11,7 +11,9 @@ The network is a set of NCHW `nn.Module`s with the upstream state-dict
 keys; the Focus stem and the NMS suppression run as hand-written CUDA
 kernels (`yolox_tpu_torch/csrc/`), built with nvcc on first use. Training
 (`yolox_tpu_torch.core.make_train_step`) runs the fused Conv-BN-SiLU
-backward of the 1x1 convs as two more such kernels.
+backward of the 1x1 convs as two more such kernels, and the on-device
+Mosaic/MixUp augmentation (`yolox_tpu_torch.data.device_augment_batch`,
+`core.make_augmented_train_step`) runs its shear passes as a fifth.
 """
 
 from yolox_tpu_torch.version import __version__
@@ -28,6 +30,7 @@ from yolox_tpu_torch.config import (
 )
 from yolox_tpu_torch.models.yolox import Yolox, YoloxModule
 from yolox_tpu_torch.models.processor import Detections, YoloxProcessor
+from yolox_tpu_torch.data import device_augment_batch
 
 __all__ = [
     "__version__",
@@ -43,4 +46,5 @@ __all__ = [
     "YoloxModule",
     "YoloxProcessor",
     "Detections",
+    "device_augment_batch",
 ]

@@ -1,11 +1,15 @@
-"""Training core: the train step and the optimizer."""
+"""Training core: the train step (plain, augmented and pipelined) and the
+optimizer."""
 
 from yolox_tpu_torch.core.optimizer import build_optimizer
 from yolox_tpu_torch.core.train_step import (
     TrainState,
     init_train_state,
+    make_augmented_train_step,
+    make_pipelined_train_step,
     make_train_step,
 )
 
 __all__ = ["TrainState", "build_optimizer", "init_train_state",
+           "make_augmented_train_step", "make_pipelined_train_step",
            "make_train_step"]

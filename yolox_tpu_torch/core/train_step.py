@@ -18,6 +18,10 @@ update their running statistics in the forward, `torch.optim.SGD`
   head's outputs are promoted to float32 before the losses.
 - `fused_bwd`: every BaseConv runs the fused-backward Function
   (`ops/conv_bwd.py`), whose 1x1 SiLU convs take the kernels K3 and K4.
+
+`make_augmented_train_step` and `make_pipelined_train_step` put the
+on-device augmentation (`data/device_augment.py`, whose warp runs the
+kernel K5) and the multiscale resize in front of the step.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Optional
 import torch
 
 from yolox_tpu_torch.core.optimizer import build_optimizer, set_hyperparams
+from yolox_tpu_torch.data.device_augment import device_augment_batch
 from yolox_tpu_torch.models.assign import assign_batch, losses_given_assignment
 from yolox_tpu_torch.utils.ema import ModelEMA
 
@@ -111,3 +116,99 @@ def make_train_step(module, num_classes: int, *, momentum: float = 0.9,
         return state, {k: v.detach() for k, v in losses.items()}
 
     return step
+
+
+def _make_augment(module, augment_kwargs, step_kwargs):
+    """augment(tiles, hw, labels, generator, out_size) -> (imgs, packed):
+    `device_augment_batch` on the module's device, its image buffers in
+    the step's compute dtype unless `augment_kwargs` says otherwise
+    (pixels land there anyway)."""
+    aug = dict(augment_kwargs or {})
+    aug.setdefault("image_dtype", step_kwargs.get("compute_dtype",
+                                                  torch.float32))
+
+    def augment(tiles, hw, labels, generator, out_size):
+        dev = next(module.parameters()).device
+        return device_augment_batch(
+            *(torch.as_tensor(a).to(dev) for a in (tiles, hw, labels)),
+            generator, out_size=out_size, **aug)
+
+    return augment
+
+
+def make_augmented_train_step(module, num_classes: int, *,
+                              augment_kwargs: Optional[dict] = None,
+                              **step_kwargs):
+    """On-device augmentation (+ multiscale resize) followed by the train
+    step.
+
+    Returns step(state, tiles, hw, labels, generator, lr, out_size,
+    train_size=None) -> (state, losses), where tiles/hw/labels/generator
+    are `device_augment_batch` inputs, moved to the module's device (the
+    generator must live there). The augmentation geometry runs at
+    `out_size`; when `train_size` differs, the batch is bilinearly resized
+    with its labels (`_multiscale_resize`).
+
+    `augment_kwargs`: `device_augment_batch` settings (degrees, translate,
+    scales, mixup_scale, shear, enable_mixup, *_prob, max_labels,
+    image_dtype); `step_kwargs` go to `make_train_step`.
+    """
+    augment = _make_augment(module, augment_kwargs, step_kwargs)
+    step = make_train_step(module, num_classes, **step_kwargs)
+
+    def step_aug(state, tiles, hw, labels, generator, lr, out_size,
+                 train_size=None):
+        imgs, packed = augment(tiles, hw, labels, generator, out_size)
+        imgs, packed = _multiscale_resize(imgs, packed, out_size, train_size)
+        return step(state, imgs, packed, lr)
+
+    return step_aug
+
+
+def _multiscale_resize(imgs, packed, out_size, train_size):
+    """Resize an augmented batch (B, H, W, 3) from `out_size` to the
+    multiscale `train_size`, bilinear without antialiasing (half-pixel
+    centres, as `jax.image.resize(..., antialias=False)`), and scale the
+    packed (cls, cx, cy, w, h) labels to match. No-op when sizes agree."""
+    if train_size is None or tuple(train_size) == tuple(out_size):
+        return imgs, packed
+    imgs = torch.nn.functional.interpolate(
+        imgs.permute(0, 3, 1, 2), size=tuple(train_size), mode="bilinear",
+        align_corners=False, antialias=False).permute(0, 2, 3, 1)
+    sy = train_size[0] / out_size[0]
+    sx = train_size[1] / out_size[1]
+    packed = packed * torch.tensor([1.0, sx, sy, sx, sy], dtype=packed.dtype,
+                                   device=packed.device)
+    return imgs, packed
+
+
+def make_pipelined_train_step(module, num_classes: int, *,
+                              augment_kwargs: Optional[dict] = None,
+                              **step_kwargs):
+    """Augment + step, software-pipelined: each call trains on the batch
+    carried from the previous call and augments the next one.
+
+    Returns (prime, step):
+      prime(tiles, hw, labels, generator, out_size) -> (imgs, packed)
+        augmentation only: the first carried batch;
+      step(state, imgs, packed, tiles, hw, labels, generator, lr, out_size,
+           train_size=None) -> (state, losses, next_imgs, next_packed)
+        resizes the carried batch from out_size to train_size, runs the
+        train step on it, then augments the next batch.
+
+    Eager PyTorch has no single program to fuse, so the two run in that
+    order on the device's stream, and the trajectory equals the serial
+    `make_augmented_train_step`'s. The carried batch always lives at
+    `out_size`, so its shape does not change with the multiscale bucket.
+    """
+    prime = _make_augment(module, augment_kwargs, step_kwargs)
+    step = make_train_step(module, num_classes, **step_kwargs)
+
+    def step_pipe(state, imgs, packed, tiles, hw, labels, generator, lr,
+                  out_size, train_size=None):
+        imgs, packed = _multiscale_resize(imgs, packed, out_size, train_size)
+        state, losses = step(state, imgs, packed, lr)
+        next_imgs, next_packed = prime(tiles, hw, labels, generator, out_size)
+        return state, losses, next_imgs, next_packed
+
+    return prime, step_pipe

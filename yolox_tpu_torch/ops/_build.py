@@ -22,11 +22,11 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("stem", "nms", "conv_bwd")
+KERNELS = ("stem", "nms", "conv_bwd", "warp")
 
-# No --use_fast_math: the NMS kernel's IoU must round exactly like the
-# PyTorch plain version, and the stem's and the conv backward's epilogues
-# keep IEEE expf.
+# No --use_fast_math: the NMS kernel's IoU and the shear's lerp must round
+# exactly like their PyTorch plain versions, and the stem's and the conv
+# backward's epilogues keep IEEE expf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
