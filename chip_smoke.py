@@ -25,9 +25,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain version, a one-call-chain PyTorch yardstick for K1, and serve
    latency (B 1) and throughput (B 32) in float32 and bfloat16;
 6. K3 and K4, the fused Conv-BN-SiLU backward kernels, against their plain
-   versions at all 43 1x1 SiLU conv shapes of yolox-s (B 16, 640 px,
-   float32 and bf16), on random x and g_y with the BN statistics of the
-   conv's own forward (tolerances: `K3_TOL`, `K4_*_TOL`);
+   versions at all 43 1x1 SiLU conv shapes of yolox-s (B 16, 640 px) and
+   at the distinct shapes of 480 and 800 px multiscale steps (HW 225,
+   900, 625, 2500: no 16-byte loads), float32 and bf16, on random x and
+   g_y with the BN statistics of the conv's own forward (tolerances:
+   `K3_TOL`, `K4_*_TOL`), K3's coefficient table against the torch
+   expressions on its sums;
 7. the training slice of yolox-s at full width and depth, 640 px, B 16,
    synthetic labels (1-30 boxes an image in 120 padded rows), through
    `make_train_step(fused_bwd=True)`: 3 steps in float32 and 3 in bf16
@@ -37,8 +40,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    (`fused_bwd=False`) on the card, and one B 2 step on the card against
    the same step on the CPU (plain versions); then step times for both
    `fused_bwd` settings in both dtypes, the device's busy share, and K3 /
-   K4 times per launch and per step beside their plain versions, bounds
-   and cuDNN yardsticks;
+   K4 times per launch and per step (CUDA events, and the kernels' own
+   device time from torch.profiler) beside their plain versions, bounds
+   and library yardsticks;
 8. the augmentation slice: K5, the shear kernel, bit-equal to its plain
    version at the 640 px warp's two pass shapes (B 16, float32 and bf16,
    affine shifts), on random per-row shifts (px 1 and 3) and on the
@@ -279,7 +283,9 @@ def conv_bwd_case(seed, b, ci, co, h, w, dtype, device):
 
     x = t(rng.standard_normal((b, ci, h, w))).to(dtype)
     wt = t(rng.uniform(-1, 1, (co, ci)) / np.sqrt(ci)).to(dtype)
-    z = torch.einsum("oi,bihw->bohw", wt.float(), x.float()).to(dtype)
+    # contiguous, as the conv's forward leaves it (einsum may not)
+    z = torch.einsum("oi,bihw->bohw", wt.float(), x.float()).to(
+        dtype).contiguous()
     mean = z.float().mean((0, 2, 3))
     inv = torch.rsqrt(((z.float() - mean[:, None, None]) ** 2).mean((0, 2, 3))
                       + 1e-3)
@@ -316,7 +322,7 @@ def check_conv_bwd(case):
     def ch(v):
         return v[None, :, None, None]
 
-    got = cb.reduce_sums(z, g_y, gamma, beta, mean, inv)
+    got, table = cb.reduce_sums(z, g_y, gamma, beta, mean, inv, coeff=True)
     want = cb.reduce_sums_plain(z, g_y, gamma, beta, mean, inv)
     zh = (z.float() - ch(mean)) * ch(inv)
     a = zh * ch(gamma) + ch(beta)
@@ -327,8 +333,12 @@ def check_conv_bwd(case):
     d3 = (got - want).abs()
     k3 = (d3.max().item(), (d3 / (K3_TOL * terms + 1e-30)).max().item())
 
-    coeff = torch.stack([gamma, beta, gamma * inv, want[0] / n, want[1] / n,
-                         mean, inv])
+    # the kernel's table: the torch expressions on its own sums
+    d_tab = (table - cb.coeff_table(got, n, gamma, beta, mean, inv)).abs()
+    if not bool((d_tab <= 1e-6 * table.abs()).all()):
+        raise AssertionError(f"K3's coefficient table is off by "
+                             f"{d_tab.max().item():.3g}")
+    coeff = cb.coeff_table(want, n, gamma, beta, mean, inv)
     gx, gw = cb.main_1x1(x, z, g_y, w, coeff)
     gx_p, gw_p = cb.main_1x1_plain(x, z, g_y, w, coeff)
     g_z = (ch(gamma * inv) * (ga - ch(want[0] / n) - zh * ch(want[1] / n))
@@ -432,6 +442,25 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, reps=5):
+    """Device time of fn() per call from CUDA events, with the calls
+    queued behind a spin kernel (~25 ms) so that the host's time between
+    launches does not show: their kernels run back to back."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def nvidia_smi():
@@ -773,15 +802,17 @@ def _launch_counters():
             "stem": stem_conv_bn_act, "nms": nms_keep, "shear_x": shear_x}
 
 
-def phase_conv_bwd(shapes):
-    """K3 and K4 against their plain versions at every shape, B 16, float32
-    and bf16. Returns the float32 max abs errors {"k3", "k4"}."""
+def phase_conv_bwd(shapes, multiscale):
+    """K3 and K4 against their plain versions at every shape of a 640 px
+    step and at the distinct `multiscale` shapes (480 and 800 px steps,
+    whose HW is no multiple of 8), B 16, float32 and bf16. Returns the
+    float32 max abs errors {"k3", "k4"}."""
     import torch
 
     errs, worst = {"k3": 0.0, "k4": 0.0}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for i, (ci, co, h, w) in enumerate(shapes):
+        for i, (ci, co, h, w) in enumerate(list(shapes) + list(multiscale)):
             r = check_conv_bwd(conv_bwd_case(100 + i, TRAIN_B, ci, co, h, w,
                                              dtype, "cuda"))
             for k in ("k3", "k4"):
@@ -790,7 +821,7 @@ def phase_conv_bwd(shapes):
                 worst[f"{k} {name}"] = max(worst.get(f"{k} {name}", 0.0),
                                            r[k][1])
     log(f"K3 / K4 match their plain versions at all {len(shapes)} shapes "
-        f"(B {TRAIN_B}): float32 max abs error K3 {errs['k3']:.3g}, K4 "
+        f"and {len(multiscale)} multiscale shapes (B {TRAIN_B}): float32 max abs error K3 {errs['k3']:.3g}, K4 "
         f"{errs['k4']:.3g}; worst error over tolerance "
         + json.dumps({k: round(v, 4) for k, v in worst.items()}))
     return errs
@@ -977,9 +1008,14 @@ def phase_train_times(cfg, x, labels):
 
 
 def conv_bwd_times(shapes):
-    """K3 and K4 at every shape (B 16): ms per launch, plain ms, bound and
-    library yardstick, per dtype; with the per-step sums and the entries
-    at the largest and the most frequent shape."""
+    """K3 and K4 at every shape (B 16): ms per launch from CUDA events
+    around 20 back-to-back calls (host or device, whichever is slower), the
+    device ms alone of the kernels and, timed alike, of the library
+    yardsticks (per shape `queued_ms`; per step also their time in
+    torch.profiler, `device_ms` and `library_device_ms` of "per_step"),
+    plain ms and bound, per dtype; with the per-step sums and the
+    entries at the largest and the most frequent shape. K3 is timed as
+    the fused backward calls it (with K4's coefficient table)."""
     import collections
 
     import torch
@@ -994,40 +1030,61 @@ def conv_bwd_times(shapes):
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         rows = []
+        calls = {"k3": [], "k4": [], "k3_lib": [], "k4_lib": []}
         for i, (ci, co, h, w) in enumerate(shapes):
             c = conv_bwd_case(200 + i, TRAIN_B, ci, co, h, w, dtype, "cuda")
             x, wt, z, g_y = c["x"], c["w"], c["z"], c["g_y"]
             gamma, beta, mean, inv = c["gamma"], c["beta"], c["mean"], c["inv"]
             n = TRAIN_B * h * w
-            s = cb.reduce_sums(z, g_y, gamma, beta, mean, inv)
-            coeff = torch.stack([gamma, beta, gamma * inv, s[0] / n, s[1] / n,
-                                 mean, inv])
+            s, coeff = cb.reduce_sums(z, g_y, gamma, beta, mean, inv,
+                                      coeff=True)
             zh = (z.float() - ch(mean)) * ch(inv)
             ga = g_y.float() * cb.act_grad("silu", zh * ch(gamma) + ch(beta))
             g_z = (ch(gamma * inv) * (ga - ch(s[0] / n) - zh * ch(s[1] / n))
                    ).to(dtype)
             ga = ga.to(dtype)
             w4 = wt[:, :, None, None]
-            iters = 5
+            del zh
+
+            def k3(z=z, g_y=g_y, gamma=gamma, beta=beta, mean=mean, inv=inv):
+                return cb.reduce_sums(z, g_y, gamma, beta, mean, inv,
+                                      coeff=True)
+
+            def k4(x=x, z=z, g_y=g_y, wt=wt, coeff=coeff):
+                return cb.main_1x1(x, z, g_y, wt, coeff)
+
+            # K3's yardstick computes grad_input as well: more work than
+            # K3. K4's takes g_z as given: less work than K4.
+            def lib3(ga=ga, z=z, gamma=gamma, mean=mean, inv=inv):
+                return torch.ops.aten.native_batch_norm_backward(
+                    ga, z, gamma, None, None, mean, inv, True, 1e-3,
+                    [True, True, True])
+
+            def lib4(x=x, w4=w4, g_z=g_z):
+                return (torch.nn.grad.conv2d_input(x.shape, w4, g_z),
+                        torch.nn.grad.conv2d_weight(x, w4.shape, g_z))
+
+            for k, f in (("k3", k3), ("k4", k4), ("k3_lib", lib3),
+                         ("k4_lib", lib4)):
+                calls[k].append(f)
+            # the small shapes are host-bound: 20 calls in a row average
+            # out the host's jitter, the same for all three
+            iters = 20
             r = {"shape": (ci, co, h, w)}
             r["k3"] = {
-                "ms": cuda_ms(lambda: cb.reduce_sums(z, g_y, gamma, beta,
-                                                     mean, inv), iters, 1),
+                "ms": cuda_ms(k3, iters),
                 "plain_ms": cuda_ms(lambda: cb.reduce_sums_plain(
-                    z, g_y, gamma, beta, mean, inv), iters, 1),
-                # computes grad_input as well: more work than K3
-                "library_ms": cuda_ms(
-                    lambda: torch.ops.aten.native_batch_norm_backward(
-                        ga, z, gamma, None, None, mean, inv, True, 1e-3,
-                        [True, True, True]), iters, 1)}
+                    z, g_y, gamma, beta, mean, inv), iters),
+                "library_ms": cuda_ms(lib3, iters)}
             r["k4"] = {
-                "ms": cuda_ms(lambda: cb.main_1x1(x, z, g_y, wt, coeff),
-                              iters, 1),
+                "ms": cuda_ms(k4, iters),
                 "plain_ms": cuda_ms(lambda: cb.main_1x1_plain(
-                    x, z, g_y, wt, coeff), iters, 1),
-                "library_ms": cuda_ms(lambda: (
-                    torch.nn.grad.conv2d_input(x.shape, w4, g_z),
-                    torch.nn.grad.conv2d_weight(x, w4.shape, g_z)), iters, 1)}
+                    x, z, g_y, wt, coeff), iters),
+                "library_ms": cuda_ms(lib4, iters)}
+            # device time alone, kernel and library timed alike
+            for k, f, lib in (("k3", k3, lib3), ("k4", k4, lib4)):
+                r[k]["device_ms"] = queued_ms(f)
+                r[k]["library_device_ms"] = queued_ms(lib)
             bounds = conv_bwd_bounds(TRAIN_B, ci, co, h * w,
                                      x.element_size(), bf16)
             for k in ("k3", "k4"):
@@ -1035,27 +1092,47 @@ def conv_bwd_times(shapes):
                 r[k]["bound_ms"] = max(t_b, t_o)
                 r[k]["bound_by"] = "bytes" if t_b >= t_o else "operations"
             rows.append(r)
-            del c, x, wt, z, g_y, ga, g_z
+            del ga, g_z
         name = str(dtype).split(".")[-1]
         out[name] = {}
         for k in ("k3", "k4"):
-            keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+            keys = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                    "library_device_ms")
             total = {q: sum(r[k][q] for r in rows) for q in keys}
+            total["queued_device_ms"] = total.pop("device_ms")
+            total["queued_library_device_ms"] = total.pop("library_device_ms")
+            # the kernels' own time, one step's launches in a row; the
+            # library's the same way
+            total["device_ms"], top = device_time(
+                lambda: [f() for f in calls[k]], 3)
+            total["library_device_ms"], lib_top = device_time(
+                lambda: [f() for f in calls[k + "_lib"]], 3)
+            total["library_kernels"] = [(e[:40], round(v, 4))
+                                        for e, v in lib_top[:4]]
             by_bytes = sum(r[k]["bound_ms"] for r in rows
                            if r[k]["bound_by"] == "bytes")
             total["bound_by"] = ("bytes" if by_bytes >= total["bound_ms"] / 2
                                  else "operations")
+            total["device_kernels"] = [(e[:40], round(v, 4)) for e, v in top]
             work = (lambda r: r["shape"][1] * r["shape"][2] * r["shape"][3]) \
                 if k == "k3" else (lambda r: np.prod(r["shape"]))
-            big = max(rows, key=work)
-            common = next(r for r in rows if r["shape"] == freq)
+            big = max(range(len(rows)), key=lambda j: work(rows[j]))
+            common = next(j for j, r in enumerate(rows) if r["shape"] == freq)
             out[name][k] = {
                 "per_step": total,
-                "largest": {"shape": big["shape"], **big[k]},
+                "largest": {"shape": rows[big]["shape"], **rows[big][k]},
                 "most_frequent": {"shape": freq,
-                                  "count": shapes.count(freq), **common[k]}}
+                                  "count": shapes.count(freq),
+                                  **rows[common][k]}}
             log(f"K{3 if k == 'k3' else 4} {name} B {TRAIN_B}: "
                 + json.dumps(out[name][k]))
+            log(f"K{3 if k == 'k3' else 4} {name} device ms by shape "
+                "(kernel, library, bound): "
+                + json.dumps([(r["shape"], round(r[k]["device_ms"], 4),
+                               round(r[k]["library_device_ms"], 4),
+                               round(r[k]["bound_ms"], 4)) for r in rows]))
+        del calls, rows
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1470,8 +1547,12 @@ def main() -> int:
         + json.dumps(sorted(set(shapes))))
     if len(shapes) != 43:
         raise AssertionError("yolox-s has 43 1x1 SiLU BaseConvs")
+    multiscale = sorted(set(kernel_conv_shapes(gpu_mod, 480))
+                        | set(kernel_conv_shapes(gpu_mod, 800)))
+    log(f"{len(multiscale)} distinct 1x1 shapes at 480 and 800 px: "
+        + json.dumps(multiscale))
     del gpu_mod, stem_mod
-    conv_errs = phase_conv_bwd(shapes)
+    conv_errs = phase_conv_bwd(shapes, multiscale)
     x_train = rng.uniform(0, 255, (TRAIN_B, 640, 640, 3)).astype(np.float32)
     labels = synthetic_labels(rng, TRAIN_B)
     train_launches = phase_train(cfg, x_train, labels, len(shapes))
@@ -1515,6 +1596,9 @@ def main() -> int:
             "launches": train_launches[name], "max_abs_err": err,
             **{q: t["per_step"][q] for q in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")},
+            # the kernels' and the library's device time alone (profiler)
+            "device_ms": t["per_step"]["device_ms"],
+            "library_device_ms": t["per_step"]["library_device_ms"],
             "unit": f"sum over the {len(shapes)} launches of one B "
                     f"{TRAIN_B} float32 training step",
             "largest": t["largest"], "most_frequent": t["most_frequent"],

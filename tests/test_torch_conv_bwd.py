@@ -214,3 +214,85 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu():
         cb.reduce_sums(zt.to("meta"), gyt.to("meta"), *vecs)
     with pytest.raises(ValueError, match="unsupported device"):
         cb.main_1x1(zt.to("meta"), zt, gyt, torch.zeros(8, 8), vecs[0])
+
+
+# (Ci, Co, H at 640 px): count of the 43 1x1 SiLU convs of yolox-s, read
+# from the model with `chip_smoke.kernel_conv_shapes`; H scales with the
+# input size (stride 4 to 32), so 480 px and 800 px follow
+YOLOX_S_1X1 = {(256, 128, 40): 6, (512, 256, 20): 6, (128, 128, 40): 5,
+               (64, 64, 80): 4, (128, 128, 80): 3, (256, 256, 40): 3,
+               (64, 32, 160): 2, (128, 64, 80): 2, (256, 256, 20): 2,
+               (512, 512, 20): 2, (512, 128, 40): 2, (256, 64, 80): 2,
+               (32, 32, 160): 1, (64, 64, 160): 1, (1024, 512, 20): 1,
+               (512, 128, 20): 1}
+
+
+@pytest.mark.parametrize("elt", [4, 2])
+@pytest.mark.parametrize("size", [640, 480, 800, 416])
+def test_launch_plan_covers_every_row_once(size, elt):
+    """K3's row ranges and K4's k tiles partition [0, B*HW) at every 1x1
+    shape of a yolox-s step; each k tile stays inside one image and every
+    split gets work; the grids cover every output tile."""
+    assert sum(YOLOX_S_1X1.values()) == 43
+    for b in (16, 1):
+        for (ci, co, h640) in YOLOX_S_1X1:
+            h = h640 * size // 640
+            hw = h * h
+            p = cb.launch_plan(b, ci, co, hw, elt)
+            rows = b * hw
+            # K3: ranges of `per` rows, whole 16-byte vectors, none empty
+            assert p.k3_per % 8 == 0 and p.k3_blocks * 8 >= co
+            assert (p.k3_splits - 1) * p.k3_per < rows <= p.k3_splits * p.k3_per
+            # K4 wgrad: tiles of bk positions inside one image
+            tpi = -(-hw // p.k4_bk)
+            assert p.k4_ntiles == b * tpi
+            covered = np.zeros(rows, np.int32)
+            for t in range(p.k4_ntiles):
+                img, p0 = divmod(t, tpi)
+                p0 *= p.k4_bk
+                p1 = min(p0 + p.k4_bk, hw)
+                assert 0 <= p0 < p1 <= hw and img < b
+                covered[img * hw + p0:img * hw + p1] += 1
+            assert (covered == 1).all()
+            assert (p.k4_splits - 1) * p.k4_tps < p.k4_ntiles \
+                <= p.k4_splits * p.k4_tps
+            assert p.k4_wgrad_grid == (-(-ci // 128), -(-co // 128),
+                                       p.k4_splits)
+            # about one wave of wgrad blocks (2 resident on each of 132
+            # SMs) unless a split would drop below 8 k tiles
+            assert int(np.prod(p.k4_wgrad_grid)) <= 264 or p.k4_splits == 1
+            assert p.k4_tps >= 8 or p.k4_splits == 1
+            assert p.k4_dgrad_grid == (-(-hw // 128), -(-ci // 128), b)
+            # partial sums stay within the scratch the wrapper sizes
+            assert p.k4_splits <= max(1, p.k4_ntiles)
+
+
+@pytest.mark.parametrize("h,elt,offset,want", [
+    (20, 2, 0, 8), (40, 4, 0, 4),        # 640 px: 16-byte loads
+    (15, 2, 0, 1), (25, 4, 0, 1),        # 480 / 800 px: odd HW
+    (30, 2, 0, 1), (30, 4, 0, 4),        # HW 900: a multiple of 4, not 8
+    (13, 2, 0, 1), (26, 4, 0, 4),        # 416 px
+    (20, 2, 2, 1), (20, 4, 4, 1),        # a view one element into storage
+    (20, 2, 800, 8)])                    # a channel slice at channel 1
+def test_vector_width_from_shape_and_offset(h, elt, offset, want):
+    hw = h * h
+    base = 1 << 20
+    stride = 3 * hw    # a channel slice of a 3x wider concatenation
+    assert cb.vector_width(elt, (hw, stride, 128),
+                           (base, base + offset)) == want
+
+
+def test_reduce_sums_coeff_table_on_cpu():
+    """With coeff=True the wrapper returns the sums and `coeff_table` of
+    them; the plain path counts no launch."""
+    x, w, z, gy, gamma, beta, mean, inv = _rows(1, 32, 8, 8, "float32")
+    zt, gyt = _nchw(z, 2, 4, torch.float32), _nchw(gy, 2, 4, torch.float32)
+    vecs = [torch.from_numpy(a) for a in (gamma, beta, mean, inv)]
+    before = cb.reduce_sums.launches
+    s, coeff = cb.reduce_sums(zt, gyt, *vecs, coeff=True)
+    assert cb.reduce_sums.launches == before
+    assert torch.equal(s, cb.reduce_sums_plain(zt, gyt, *vecs))
+    assert coeff.shape == (7, 8)
+    torch.testing.assert_close(coeff[2], vecs[0] * vecs[3])
+    torch.testing.assert_close(coeff[3:5], s / 32)
+    torch.testing.assert_close(coeff[[0, 1, 5, 6]], torch.stack(vecs))

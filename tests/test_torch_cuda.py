@@ -121,9 +121,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 
 # (Ci, Co, H, W) of yolox-s 1x1 convs at 640 px (dark2 CspLayer conv1,
-# a head stem, dark5 SPP conv2) and one with ragged tile edges
+# a head stem, dark5 SPP conv2), one with ragged tile edges, and shapes
+# whose HW is no multiple of 8 (16-byte loads off): multiscale steps at
+# 480 px (15x15, 30x30) and 800 px (25x25), and 416 px (13x13)
 CONV_BWD_SHAPES = [(64, 32, 160, 160), (256, 128, 40, 40),
-                   (1024, 512, 20, 20), (24, 40, 7, 9)]
+                   (1024, 512, 20, 20), (24, 40, 7, 9),
+                   (1024, 512, 15, 15), (256, 128, 30, 30),
+                   (512, 256, 25, 25), (64, 32, 13, 13)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -153,6 +157,57 @@ def test_conv_bwd_kernels_read_channel_slices(cuda):
         cb.reduce_sums(case["z"].double(), case["g_y"].double(),
                        case["gamma"], case["beta"], case["mean"],
                        case["inv"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_bwd_kernels_single_image(cuda, dtype):
+    check_conv_bwd(conv_bwd_case(7, 1, 512, 256, 20, 20, getattr(torch, dtype),
+                                 cuda))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_bwd_kernels_read_unaligned_views(cuda, dtype):
+    """z a channel slice starting at channel 3 of HW = 100 (an offset of
+    300 elements), g_y and x views one element into their storage: the
+    kernels take their masked element loads, with the same result."""
+    from yolox_tpu_torch.ops import conv_bwd as cb
+
+    dt = getattr(torch, dtype)
+    case = conv_bwd_case(11, 3, 64, 32, 10, 10, dt, cuda)
+    wide = torch.zeros((3, 40, 10, 10), dtype=dt, device=cuda)
+    wide[:, 3:35] = case["z"]
+    case["z"] = wide[:, 3:35]
+    for k in ("g_y", "x"):
+        t = case[k]
+        flat = torch.zeros(1 + t.numel(), dtype=dt, device=cuda)
+        flat[1:] = t.reshape(-1)
+        case[k] = flat[1:].view(t.shape)
+        assert case[k].data_ptr() % 16 != 0
+    assert cb.vector_width(case["x"].element_size(), (100,),
+                           (case["g_y"].data_ptr(),)) == 1
+    check_conv_bwd(case)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_bwd_kernels_are_deterministic(cuda, dtype):
+    """Two calls give bit-equal S1/S2, coefficient table, g_x and g_W, and
+    the table equals the torch expressions on the kernel's sums."""
+    from yolox_tpu_torch.ops import conv_bwd as cb
+
+    c = conv_bwd_case(3, 8, 1024, 512, 20, 20, getattr(torch, dtype), cuda)
+    args = (c["z"], c["g_y"], c["gamma"], c["beta"], c["mean"], c["inv"])
+    runs = []
+    for _ in range(2):
+        s, coeff = cb.reduce_sums(*args, coeff=True)
+        runs.append((s.clone(), coeff.clone())
+                    + cb.main_1x1(c["x"], c["z"], c["g_y"], c["w"], coeff))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    s, coeff = runs[0][:2]
+    assert torch.equal(s, cb.reduce_sums(*args))
+    assert torch.equal(coeff, cb.coeff_table(s, 8 * 400, c["gamma"],
+                                             c["beta"], c["mean"], c["inv"]))
 
 
 def test_serve_on_cuda_matches_cpu(cuda):

@@ -16,9 +16,11 @@ The PyTorch counterpart of the JAX package's `fused_conv_bn_act`
   g_z is rounded to the activation dtype and the conv's dgrad and wgrad
   go to cuDNN (XLA's in the JAX package).
 - **The 1x1, stride-1, groups-1 SiLU case** runs the sums as K3
-  (`reduce_sums`, replaces `pallas_conv_bwd.py::_reduce_kernel`) and g_z
-  with both products as K4 (`main_1x1`, replaces `_main_kernel_1x1`):
-  g_z never reaches device memory.
+  (`reduce_sums`, replaces `pallas_conv_bwd.py::_reduce_kernel`; one
+  launch that also writes K4's coefficient table) and g_z with both
+  products as K4 (`main_1x1`, replaces `_main_kernel_1x1`): g_z is made
+  once into a scratch tensor in the activation dtype, then the two
+  products read it (design note in `csrc/conv_bwd.cu`).
 
 The (mean, var) outputs feed the running-statistic update only; nothing
 differentiable depends on them, so their cotangents are ignored, as in
@@ -38,7 +40,9 @@ CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
+import functools
+import struct
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,12 +52,24 @@ from yolox_tpu_torch.ops.stem import activate
 
 BN_EPS = 1e-3
 ACTS = ("silu", "lrelu", "relu")
-_DTYPE_CODES = {torch.float32: 1, torch.bfloat16: 2}
-# row-range splits: aim for this many blocks (132 SMs) in K3's streaming
-# reduction and in K4's split-K wgrad
-_K3_BLOCKS = 2112
-_K4_BLOCKS = 528
-_TILE = 64
+_F32 = torch.float32
+_DTYPE_CODES = {_F32: 1, torch.bfloat16: 2}
+# Launch arithmetic (`launch_plan`). Aims: about 8 resident 256-thread
+# blocks on each of 132 SMs in K3 (one channel a warp, 8 a block), each
+# warp reducing at least _K3_MIN_ROWS rows; about 2 resident blocks an SM
+# in K4's split-K wgrad (at most one wave), each split at least
+# _K4_MIN_TILES k tiles long.
+_K3_CHANNELS = 8
+_K3_BLOCKS = 1056
+_K3_MIN_ROWS = 1024
+_K4_TILE = 128
+_K4_BK = {2: 64, 4: 16}  # wgrad k-tile depth (positions) by element bytes
+_K4_BLOCKS = 264
+_K4_MIN_TILES = 8
+# The launchers' argument structs, one 8-byte slot each, in the order of
+# `ReduceArgs` / `MainArgs` in csrc/conv_bwd.cu (null pointers as 0).
+_K3_ARGS = struct.Struct("<19q")
+_K4_ARGS = struct.Struct("<21q")
 
 
 def act_grad(name, a):
@@ -103,76 +119,170 @@ def reduce_sums_plain(z, g_y, gamma, beta, mean, inv):
     return torch.stack([ga.sum((0, 2, 3)), (ga * zh).sum((0, 2, 3))])
 
 
-def _nchw_view(t):
-    """t itself when each image's (C, H, W) block is contiguous (any batch
-    stride), else a contiguous copy. Returns (tensor, batch stride)."""
+def _nchw_view(t, chw):
+    """t itself when each image's (C, H, W) block (`chw` elements) is
+    contiguous (any batch stride), else a contiguous copy. Returns
+    (tensor, batch stride)."""
+    if t.is_contiguous():
+        return t, chw
     b, c, h, w = t.shape
     if not (t.stride(3) == 1 and t.stride(2) == w and t.stride(1) == h * w
-            and (b == 1 or t.stride(0) >= c * h * w)):
-        t = t.contiguous()
-    return t, (t.stride(0) if b > 1 else c * h * w)
+            and (b == 1 or t.stride(0) >= chw)):
+        return t.contiguous(), chw
+    return t, (t.stride(0) if b > 1 else chw)
 
 
-def _check_cuda(name, tensors, dtype):
-    if dtype not in _DTYPE_CODES:
+class LaunchPlan(NamedTuple):
+    """Grids of K3 and K4 for one (B, Ci, Co, HW) and element size."""
+    k3_blocks: int      # blocks along the channels (8 channels a block)
+    k3_splits: int      # row ranges of each channel
+    k3_per: int         # rows a range (a multiple of 8); range s covers
+    #                     rows [s * per, min((s + 1) * per, B * HW))
+    k4_bk: int          # wgrad k tile: positions of one image
+    k4_ntiles: int      # k tiles: B * ceil(HW / bk); tile t covers
+    #                     positions [p0, min(p0 + bk, HW)) of image
+    #                     t // ceil(HW / bk), p0 = bk * (t % ceil(HW / bk))
+    k4_tps: int         # k tiles a split; split s takes [s * tps, ...)
+    k4_splits: int      # wgrad splits (1: no partial sums)
+    k4_dgrad_grid: Tuple[int, int, int]  # (HW tiles, Ci tiles, B)
+    k4_wgrad_grid: Tuple[int, int, int]  # (Ci tiles, Co tiles, splits)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(b, ci, co, hw, elt_bytes) -> LaunchPlan:
+    """The launch arithmetic of K3 and K4 (see `LaunchPlan`). K3's
+    channels are K4's Co; element sizes 4 (float32) or 2 (bf16)."""
+    rows = b * hw
+    k3_blocks = -(-co // _K3_CHANNELS)
+    want = max(1, min(-(-_K3_BLOCKS // k3_blocks), rows // _K3_MIN_ROWS))
+    per = -(-rows // want)
+    per += -per % 8      # a whole number of 16-byte vectors of any dtype
+    k3_splits = -(-rows // per)
+    bk = _K4_BK[elt_bytes]
+    ntiles = b * -(-hw // bk)
+    t = _K4_TILE
+    ci_t, co_t = -(-ci // t), -(-co // t)
+    want = max(1, min(_K4_BLOCKS // (ci_t * co_t), ntiles // _K4_MIN_TILES))
+    tps = -(-ntiles // want)
+    k4_splits = -(-ntiles // tps)
+    return LaunchPlan(k3_blocks, k3_splits, per, bk, ntiles, tps, k4_splits,
+                      (-(-hw // t), ci_t, b), (ci_t, co_t, k4_splits))
+
+
+def vector_width(elt_bytes, lengths, ptrs) -> int:
+    """Elements a kernel load may take at once: 16 bytes' worth when every
+    length (HW, batch strides, Ci, in elements) is a multiple of it and
+    every pointer is 16-byte aligned, else 1 (masked element loads)."""
+    e = 16 // elt_bytes
+    for n in lengths:
+        if n % e:
+            return 1
+    for q in ptrs:
+        if q & 15:
+            return 1
+    return e
+
+
+# Per (device, stream): a float32 scratch buffer. Element 0 is K3's
+# arrival counter (0 between launches, reset by the kernel itself);
+# partial sums start at element 4 (16 bytes in). Launches on one stream
+# run in order, so they share it.
+_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _scratch_for(device, stream, n):
+    """The address of the scratch of `device`'s `stream`, grown to hold n
+    partial sums."""
+    key = (device.index, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < 4 + n:
+        buf = torch.zeros(4 + n, dtype=_F32, device=device)
+        _scratch[key] = buf
+    return buf.data_ptr()
+
+
+def _f32_vectors(vs, c, index):
+    """(C,) float32 contiguous forms of the tensors `vs` on CUDA device
+    `index` (cast when needed)."""
+    out = []
+    for v in vs:
+        if (v.dtype is not _F32 or v.shape != (c,) or not v.is_contiguous()
+                or v.get_device() != index):
+            v = v.to(_F32).contiguous()
+            if v.shape != (c,) or v.get_device() != index:
+                raise ValueError(f"gamma, beta, mean, inv must be ({c},) on "
+                                 f"cuda:{index}")
+        out.append(v)
+    return out
+
+
+def _cuda_dtype(name, dtype, tensors, index):
+    """The launcher's code of `dtype`; raises unless every tensor has that
+    dtype and lies on CUDA device `index`."""
+    code = _DTYPE_CODES.get(dtype)
+    if code is None:
         raise ValueError(f"{name}: dtype {dtype} not supported (float32, "
                          "bfloat16)")
-    dev = tensors[0].device
     for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: all inputs must be on {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: mixed dtypes {t.dtype} and {dtype}")
+        if t.dtype != dtype or t.get_device() != index:
+            raise ValueError(f"{name}: all inputs must be {dtype} on "
+                             f"cuda:{index}")
+    return code
 
 
-def _splits(tiles, rows, min_rows, blocks):
-    """Number of row ranges to split a reduction over, so that about
-    `blocks` blocks run and each range has >= min_rows rows."""
-    return max(1, min(-(-blocks // tiles), rows // min_rows))
+def coeff_table(s, n, gamma, beta, mean, inv):
+    """K4's (7, C) coefficients from K3's sums `s` over `n` positions:
+    gamma, beta, gamma * inv, S1/N, S2/N, mean, inv."""
+    return torch.stack([gamma, beta, gamma * inv, s[0] / n, s[1] / n, mean,
+                        inv])
 
 
-def reduce_sums(z, g_y, gamma, beta, mean, inv):
-    """K3: (2, C) float32 S1, S2 (see `reduce_sums_plain`)."""
-    if z.device.type == "cpu":
-        return reduce_sums_plain(z, g_y, gamma, beta, mean, inv)
-    if z.device.type != "cuda":
-        raise ValueError(f"reduce_sums: unsupported device {z.device}")
-    _check_cuda("reduce_sums", (z, g_y), z.dtype)
-    if z.shape != g_y.shape or z.dim() != 4:
-        raise ValueError(f"reduce_sums: z {tuple(z.shape)} and g_y "
+def reduce_sums(z, g_y, gamma, beta, mean, inv, coeff: bool = False):
+    """K3: (2, C) float32 S1, S2 (see `reduce_sums_plain`); with `coeff`,
+    (sums, the (7, C) table of `coeff_table`), both from one launch."""
+    if not z.is_cuda:
+        if z.device.type != "cpu":
+            raise ValueError(f"reduce_sums: unsupported device {z.device}")
+        s = reduce_sums_plain(z, g_y, gamma, beta, mean, inv)
+        if not coeff:
+            return s
+        b, _, h, w = z.shape
+        return s, coeff_table(s, b * h * w, gamma, beta, mean, inv)
+    dev = z.device
+    index = dev.index
+    code = _cuda_dtype("reduce_sums", z.dtype, (g_y,), index)
+    shape = z.shape
+    if g_y.shape != shape or len(shape) != 4:
+        raise ValueError(f"reduce_sums: z {tuple(shape)} and g_y "
                          f"{tuple(g_y.shape)} must be one (B, C, H, W) shape")
-    b, c, h, w = z.shape
-    gb = torch.stack([gamma, beta, mean, inv]).to(torch.float32).contiguous()
-    if gb.shape != (4, c) or gb.device != z.device:
-        raise ValueError("reduce_sums: gamma, beta, mean, inv must be (C,) "
-                         f"on {z.device}")
-    z, sz = _nchw_view(z)
-    g_y, sg = _nchw_view(g_y)
-    rows = b * h * w
-    splits = _splits(c, rows, 1024, _K3_BLOCKS)
-    partial = torch.empty((splits, 2, c), dtype=torch.float32, device=z.device)
-    out = torch.empty((2, c), dtype=torch.float32, device=z.device)
-    fn = _build.load("conv_bwd").yolox_bn_silu_reduce
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(z.data_ptr(), sz, g_y.data_ptr(), sg, _DTYPE_CODES[z.dtype],
-                 gb.data_ptr(), partial.data_ptr(), out.data_ptr(), b, c,
-                 h * w, splits, stream)
-    _build.check(err, "reduce_sums kernel")
+    b, c, h, w = shape
+    hw = h * w
+    g, be, m, iv = _f32_vectors((gamma, beta, mean, inv), c, index)
+    z, sz = _nchw_view(z, c * hw)
+    g_y, sg = _nchw_view(g_y, c * hw)
+    zp, gp = z.data_ptr(), g_y.data_ptr()
+    elt = 4 if code == 1 else 2
+    plan = launch_plan(b, c, c, hw, elt)
+    ctr = _scratch_for(dev, _build.stream(dev), 2 * plan.k3_splits * c)
+    out = torch.empty(2, c, dtype=_F32, device=dev)
+    table = torch.empty(7, c, dtype=_F32, device=dev) if coeff else None
+    _build.launch(_build.load("conv_bwd").yolox_bn_silu_reduce, dev,
+                  "reduce_sums kernel", _K3_ARGS.pack(
+                      zp, sz, gp, sg, code,
+                      vector_width(elt, (hw, sz, sg), (zp, gp)) > 1,
+                      g.data_ptr(), be.data_ptr(), m.data_ptr(),
+                      iv.data_ptr(), ctr, ctr + 16, out.data_ptr(),
+                      table.data_ptr() if coeff else 0, b, c, hw,
+                      plan.k3_per, plan.k3_splits))
     reduce_sums.launches += 1
-    return out
+    return (out, table) if coeff else out
 
 
 reduce_sums.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K4 (1x1): g_z in registers -> dgrad g_x = W^T g_z, wgrad g_W = g_z X^T
+# K4 (1x1): g_z once -> dgrad g_x = W^T g_z, wgrad g_W = g_z X^T
 # ---------------------------------------------------------------------------
 
 def main_1x1_plain(x, z, g_y, w, coeff):
@@ -194,11 +304,13 @@ def main_1x1_plain(x, z, g_y, w, coeff):
 
 def main_1x1(x, z, g_y, w, coeff):
     """K4: (g_x, g_W) (see `main_1x1_plain`)."""
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"main_1x1: unsupported device {x.device}")
         return main_1x1_plain(x, z, g_y, w, coeff)
-    if x.device.type != "cuda":
-        raise ValueError(f"main_1x1: unsupported device {x.device}")
-    _check_cuda("main_1x1", (x, z, g_y, w), x.dtype)
+    dev = x.device
+    index = dev.index
+    code = _cuda_dtype("main_1x1", x.dtype, (z, g_y, w), index)
     b, ci, h, wd = x.shape
     co = z.shape[1]
     if (z.shape != (b, co, h, wd) or g_y.shape != z.shape
@@ -206,35 +318,33 @@ def main_1x1(x, z, g_y, w, coeff):
         raise ValueError(
             f"main_1x1: shapes x {tuple(x.shape)}, z {tuple(z.shape)}, g_y "
             f"{tuple(g_y.shape)}, w {tuple(w.shape)} do not form a 1x1 conv")
-    coeff = coeff.to(torch.float32).contiguous()
-    if coeff.shape != (7, co) or coeff.device != x.device:
-        raise ValueError(f"main_1x1: coeff must be (7, Co) on {x.device}")
-    x, sx = _nchw_view(x)
-    z, sz = _nchw_view(z)
-    g_y, sg = _nchw_view(g_y)
-    w = w.contiguous()
+    if coeff.dtype is not _F32 or not coeff.is_contiguous():
+        coeff = coeff.to(_F32).contiguous()
+    if coeff.shape != (7, co) or coeff.get_device() != index:
+        raise ValueError(f"main_1x1: coeff must be (7, Co) on {dev}")
     hw = h * wd
-    g_x = torch.empty((b, ci, h, wd), dtype=x.dtype, device=x.device)
-    tiles = -(-co // _TILE) * -(-ci // _TILE)
-    splits = _splits(tiles, b * hw, 256, _K4_BLOCKS)
-    partial = torch.empty((splits, co, ci), dtype=torch.float32,
-                          device=x.device)
-    g_w = torch.empty((co, ci), dtype=torch.float32, device=x.device)
-    fn = _build.load("conv_bwd").yolox_conv1x1_bn_silu_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), sx, z.data_ptr(), sz, g_y.data_ptr(), sg,
-                 w.data_ptr(), _DTYPE_CODES[x.dtype], coeff.data_ptr(),
-                 g_x.data_ptr(), partial.data_ptr(), g_w.data_ptr(), b, ci,
-                 co, hw, splits, stream)
-    _build.check(err, "main_1x1 kernel")
+    x, sx = _nchw_view(x, ci * hw)
+    z, sz = _nchw_view(z, co * hw)
+    g_y, sg = _nchw_view(g_y, co * hw)
+    w = w.contiguous()
+    xp, zp, gp, wp = x.data_ptr(), z.data_ptr(), g_y.data_ptr(), w.data_ptr()
+    elt = 4 if code == 1 else 2
+    vec = vector_width(elt, (hw, sx, sz, sg, ci), (xp, zp, gp, wp)) > 1
+    plan = launch_plan(b, ci, co, hw, elt)
+    dtype = x.dtype
+    g_z = torch.empty(b, co, hw, dtype=dtype, device=dev)
+    g_x = torch.empty(b, ci, h, wd, dtype=dtype, device=dev)
+    g_w = torch.empty(co, ci, dtype=_F32, device=dev)
+    partial = 0
+    if plan.k4_splits > 1:  # per-split sums from element 4 of the scratch
+        partial = _scratch_for(dev, _build.stream(dev),
+                               plan.k4_splits * co * ci) + 16
+    _build.launch(_build.load("conv_bwd").yolox_conv1x1_bn_silu_bwd, dev,
+                  "main_1x1 kernel", _K4_ARGS.pack(
+                      xp, sx, zp, sz, gp, sg, wp, code, vec,
+                      coeff.data_ptr(), g_z.data_ptr(), g_x.data_ptr(),
+                      partial, g_w.data_ptr(), b, ci, co, hw, plan.k4_tps,
+                      plan.k4_ntiles, plan.k4_splits))
     main_1x1.launches += 1
     return g_x, g_w
 
@@ -274,15 +384,14 @@ class _FusedConvBnAct(torch.autograd.Function):
         n = b * oh * ow
         sdt = stat_dtype(z.dtype)
         gamma32, beta32 = gamma.to(sdt), beta.to(sdt)
-        ginv = gamma32 * inv
         wc = w.to(x.dtype)
         if uses_kernels(w.shape[-1], stride, groups, act):
-            s1, s2 = reduce_sums(z, g_y, gamma32, beta32, mean, inv)
-            coeff = torch.stack([gamma32, beta32, ginv, s1 / n, s2 / n,
-                                 mean, inv])
+            (s1, s2), coeff = reduce_sums(z, g_y, gamma32, beta32, mean, inv,
+                                          coeff=True)
             g_x, g_w = main_1x1(x, z, g_y, wc.reshape(co, -1), coeff)
             g_w = g_w.reshape(w.shape)
         else:
+            ginv = gamma32 * inv
             zh = (z.to(sdt) - per_channel(mean)) * per_channel(inv)
             ga = g_y.to(sdt) * act_grad(
                 act, zh * per_channel(gamma32) + per_channel(beta32))

@@ -19,8 +19,6 @@ PyTorch version, `nms_keep_plain`, only for CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from yolox_tpu_torch.ops import _build
@@ -81,16 +79,9 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
     keep = torch.empty((b, k), dtype=torch.uint8, device=boxes.device)
     if keep.numel() == 0:
         return keep.view(torch.bool)
-    fn = _build.load("nms").yolox_nms_keep
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p]
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
-                 float(thr), stream)
-    _build.check(err, "nms kernel")
+    _build.launch(_build.load("nms").yolox_nms_keep, boxes.device,
+                  "nms kernel", boxes.data_ptr(), valid.data_ptr(),
+                  keep.data_ptr(), b, k, float(thr))
     nms_keep.launches += 1
     return keep.view(torch.bool)
 

@@ -19,8 +19,6 @@ version, `shear_x_plain`, only for CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from yolox_tpu_torch.ops import _build
@@ -85,16 +83,10 @@ def shear_x(img: torch.Tensor, shifts: torch.Tensor, out_w: int,
     out = torch.empty((b, h, out_wl), dtype=img.dtype, device=img.device)
     if out.numel() == 0:
         return out
-    fn = _build.load("warp").yolox_shear_x
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(img.data_ptr(), shifts.data_ptr(), out.data_ptr(), b * h, wl,
-                 out_wl, px, k_max, _DTYPE_CODES[img.dtype], stream)
-    _build.check(err, "shear kernel")
+    _build.launch(_build.load("warp").yolox_shear_x, img.device,
+                  "shear kernel", img.data_ptr(), shifts.data_ptr(),
+                  out.data_ptr(), b * h, wl, out_wl, px, k_max,
+                  _DTYPE_CODES[img.dtype])
     shear_x.launches += 1
     return out
 

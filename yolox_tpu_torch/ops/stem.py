@@ -20,8 +20,6 @@ PyTorch version, `stem_conv_bn_act_plain`, only for CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
@@ -95,18 +93,11 @@ def stem_conv_bn_act(x, wb, scale, bias, act: str = "silu",
                       device=x.device)
     if out.numel() == 0:
         return out
-    fn = _build.load("stem").yolox_stem_conv_bn_act
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), _IN_CODES[x.dtype], wb.data_ptr(),
-                 scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 _OUT_CODES[out_dtype], b, h, w, cout, _ACT_CODES[act], stream)
-    _build.check(err, "stem kernel")
+    _build.launch(_build.load("stem").yolox_stem_conv_bn_act, x.device,
+                  "stem kernel", x.data_ptr(), _IN_CODES[x.dtype],
+                  wb.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                  out.data_ptr(), _OUT_CODES[out_dtype], b, h, w, cout,
+                  _ACT_CODES[act])
     stem_conv_bn_act.launches += 1
     return out
 
