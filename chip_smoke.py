@@ -8,9 +8,10 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. start: the card's name and power limit, the torch and CUDA versions,
    and the build of every kernel under `yolox_tpu_torch/csrc/` (one nvcc
    per source, all started together);
-2. K1, the stem kernel, against its plain PyTorch version at the yolox-s
-   stem's shapes (B 1 and 8, 640 px, uint8 / float32 in, float32 / bf16
-   out);
+2. K1, the stem kernel, against its plain PyTorch version at the stem's
+   shapes (B 1 and 8, 640 px, C 32 (yolox-s) and 80 (yolox-x), uint8 /
+   float32 / bf16 in, float32 / bf16 out, float32 weights and
+   bf16-exact ones) at `stem_limit`;
 3. K2, the NMS kernel, against its plain version: bit-equal keep masks on
    random boxes (B 8, K 1024, with and without the class offset) and on
    edge cases (zero-area, identical, touching, negative-extent boxes, IoU
@@ -21,9 +22,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    same model on the CPU (plain versions); `YoloxModule.serve` and
    `YoloxModule.__call__` against the committed goldens
    `tests/golden/s_serve_seed4321.npz` and `s_seed4321.npz`;
-5. times with CUDA events after warm-up at B 1 and 32: each kernel, its
-   plain version, a one-call-chain PyTorch yardstick for K1, and serve
-   latency (B 1) and throughput (B 32) in float32 and bfloat16;
+5. times after warm-up at B 1 and 32: K1 (uint8 in, float32 and bf16
+   out) and K2 by CUDA events and by device time alone (`queued_ms`),
+   their plain versions, K1's cuDNN yardstick in the output's dtype, the
+   bounds (`stem_bound`, `nms_bound`), and serve latency (B 1) and
+   throughput (B 32) in float32 and bfloat16;
 6. K3 and K4, the fused Conv-BN-SiLU backward kernels, against their plain
    versions at all 43 1x1 SiLU conv shapes of yolox-s (B 16, 640 px) and
    at the distinct shapes of 480 and 800 px multiscale steps (HW 225,
@@ -43,21 +46,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    K4 times per launch and per step (CUDA events, and the kernels' own
    device time from torch.profiler) beside their plain versions, bounds
    and library yardsticks;
-8. the augmentation slice: K5, the shear kernel, bit-equal to its plain
-   version at the 640 px warp's two pass shapes (B 16, float32 and bf16,
-   affine shifts), on random per-row shifts (px 1 and 3) and on the
-   contract's edge shifts; `augment_with_draws` on the card against the
-   CPU on one set of draws (B 2, 640 px: images before HSV within
-   `AUG_IMG_TOL`, HSV within `AUG_HSV_TOL`, labels within
-   `AUG_LABEL_TOL`, rows exact); the augmented main path,
-   `make_augmented_train_step(fused_bwd=True)` on yolox-s at full width
-   and depth, 640 px, B 16, 3 steps in float32 and 3 in bf16 from a CUDA
-   generator, with the launch counters read around each step (K5 twice,
-   K3 and K4 43 times, K1 and K2 never); then the augmentation's time per
-   batch, the augmented step against the plain step on an augmented
-   batch, busy share and peak memory, and K5's times per launch and per
-   step beside its plain version, bound and the `F.grid_sample`
-   yardstick.
+8. the augmentation slice: K5, the fused shear kernel (`shear_xy`: the
+   warp's passes 2 and 3 and the transpose between them), bit-equal to
+   its plain version with one launch a call at the 640 px warp's shape
+   (B 16, float32 and bf16) on affine, unbounded random and edge shifts,
+   and at a ragged size with px 1 and 3; the single-pass kernel
+   (`shear_x`) bit-equal at the warp's two pass shapes and on random and
+   edge shifts; `augment_with_draws` on the card against the CPU on one
+   set of draws (B 2, 640 px: images before HSV within `AUG_IMG_TOL`, HSV
+   within `AUG_HSV_TOL`, labels within `AUG_LABEL_TOL`, rows exact); the
+   augmented main path, `make_augmented_train_step(fused_bwd=True)` on
+   yolox-s at full width and depth, 640 px, B 16, 3 steps in float32 and
+   3 in bf16 from a CUDA generator, with the launch counters read around
+   each step (`shear_xy` once, `shear_x` never, K3 and K4 43 times, K1
+   and K2 never); then the augmentation's time per batch, the augmented
+   step against the plain step on an augmented batch, busy share and peak
+   memory, and the fused K5's times beside its plain version,
+   `shear_xy_bound`, the `F.grid_sample` yardstick and the two-launch
+   path it replaced (both passes and the transpose, each timed).
 
 Then JSON lines with the serve, training and augmentation times and the
 kernels, the `nvidia-smi` name and power limit, and as the last line
@@ -245,13 +251,14 @@ def gap_threshold(scores, lo, hi):
 
 def stem_bound(b, h, w, c, in_bytes, out_bytes):
     """Least time of K1 on an H100 (ms) and what sets it: each input byte
-    read once, each output byte written once; 2 * 108 float32 operations
-    per output value on CUDA cores."""
+    read once, each output byte written once; 2 * 108 operations per
+    output value at the bf16 tensor-core rate (the work, whatever unit a
+    kernel runs it on)."""
     ho, wo = h // 2, w // 2
     nbytes = b * h * w * 3 * in_bytes + b * c * ho * wo * out_bytes \
         + c * (108 + 2) * 4
     flops = 2 * 108 * c * ho * wo * b
-    t_bytes, t_ops = nbytes / H100_HBM_BYTES, flops / H100_F32_FLOPS
+    t_bytes, t_ops = nbytes / H100_HBM_BYTES, flops / H100_BF16_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -489,8 +496,39 @@ def phase_start():
     log(f"kernel build (parallel nvcc): {time.perf_counter() - t0:.1f} s")
 
 
-def phase_stem(rng, wb, scale, bias):
-    """K1 against its plain version; returns the float32-output max error."""
+# K1 on the tensor cores (uint8 and bf16 images): the tensor core sums a
+# k step's products by aligning them to the largest and truncating, up to
+# ~2 ulp of a step's magnitude for each of the 7 k steps (the kernel adds
+# the steps with IEEE adds), so K1's float32 sum may stray by up to 2^-19
+# of its sum of |x w|; times |scale| and the activation's largest slope
+# (1.1, SiLU), this is added to the output tolerances below. It matters
+# near zero, where one bf16 ulp of the output is tiny.
+K1_TC_TOL = 2.0 ** -19
+
+
+def stem_limit(x, wb, scale, ref, out_dtype, tensor_core=True):
+    """K1's tolerance for each output: float32 out `F32_ATOL` + `F32_RTOL`
+    |ref|, bf16 out one bf16 ulp (`BF16_ULP` |ref| + 1e-6); for uint8 and
+    bf16 images, which take the tensor cores (unless `tensor_core` is
+    False), plus `K1_TC_TOL` times 1.1 |scale| sum |x w|."""
+    import torch
+    import torch.nn.functional as F
+
+    if out_dtype == torch.float32:
+        lim = F32_ATOL + F32_RTOL * ref.abs()
+    else:
+        lim = BF16_ULP * ref.abs() + 1e-6
+    if tensor_core and x.dtype != torch.float32:
+        sxw = F.conv2d(x.permute(0, 3, 1, 2).float().abs(), wb.abs(),
+                       stride=2, padding=2)
+        lim = lim + K1_TC_TOL * 1.1 * scale.abs()[:, None, None] * sxw
+    return lim
+
+
+def check_stem(x, wb, scale, bias, act, out_dtype):
+    """K1 on one input against its plain version at `stem_limit`.
+    Returns (max abs error, max error over its tolerance, the same over
+    the tolerance without the tensor-core term); fails past 1."""
     import torch
 
     from yolox_tpu_torch.ops.stem import (
@@ -498,27 +536,45 @@ def phase_stem(rng, wb, scale, bias):
         stem_conv_bn_act_plain,
     )
 
+    got = stem_conv_bn_act(x, wb, scale, bias, act, out_dtype).float()
+    ref = stem_conv_bn_act_plain(x, wb, scale, bias, act, out_dtype).float()
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    r = (err.max().item(),
+         (err / stem_limit(x, wb, scale, ref, out_dtype)).max().item(),
+         (err / stem_limit(x, wb, scale, ref, out_dtype, False)).max().item())
+    if not r[1] <= 1:
+        raise AssertionError(f"K1 disagrees with its plain version: {r}")
+    return r
+
+
+def phase_stem(rng, wb, scale, bias):
+    """K1 against its plain version at C 32 (yolox-s) and 80 (yolox-x),
+    B 1 and 8, 640 px, uint8 / float32 / bf16 images, float32 / bf16
+    outputs, float32 weights and bf16-exact ones (a bf16 model's); returns
+    the float32-output max error at C 32."""
+    import torch
+
     f32_err = 0.0
-    for b in (1, 8):
-        img = torch.from_numpy(
-            rng.integers(0, 256, (b, 640, 640, 3), dtype=np.uint8)).cuda()
-        for x in (img, img.float()):
-            for out_dtype in (torch.float32, torch.bfloat16):
-                got = stem_conv_bn_act(x, wb, scale, bias, "silu",
-                                       out_dtype).float()
-                ref = stem_conv_bn_act_plain(x, wb, scale, bias, "silu",
-                                             out_dtype).float()
-                err = (got - ref).abs()
-                if out_dtype == torch.float32:
-                    ok = bool((err <= F32_ATOL + F32_RTOL * ref.abs()).all())
-                    f32_err = max(f32_err, err.max().item())
-                else:
-                    ok = bool((err <= BF16_ULP * ref.abs() + 1e-6).all())
-                log(f"K1 b{b} {x.dtype} -> {out_dtype}: max |d| "
-                    f"{err.max().item():.3g} (|ref| <= "
-                    f"{ref.abs().max().item():.4g}) {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError("K1 disagrees with its plain version")
+    c80 = torch.from_numpy(rng.uniform(-0.1, 0.1, (80, 3, 6, 6)).astype(
+        np.float32)).cuda()
+    s80 = torch.from_numpy(rng.uniform(0.5, 1.5, 80).astype(np.float32)).cuda()
+    b80 = torch.from_numpy(rng.uniform(-1, 1, 80).astype(np.float32)).cuda()
+    for c, (w, s, bi) in ((32, (wb, scale, bias)), (80, (c80, s80, b80))):
+        for b in (1, 8):
+            img = torch.from_numpy(
+                rng.integers(0, 256, (b, 640, 640, 3), dtype=np.uint8)).cuda()
+            for x in (img, img.float(), img.bfloat16()):
+                for wname, wt in (("f32 w", w),
+                                  ("bf16 w", w.bfloat16().float())):
+                    for out_dtype in (torch.float32, torch.bfloat16):
+                        err, rel, rel0 = check_stem(x, wt, s, bi, "silu",
+                                                    out_dtype)
+                        if out_dtype == torch.float32 and c == 32:
+                            f32_err = max(f32_err, err)
+                        log(f"K1 C{c} b{b} {x.dtype} {wname} -> {out_dtype}: "
+                            f"max |d| {err:.3g}, {rel:.3g} of its tolerance "
+                            f"({rel0:.3g} without the tensor-core term)")
     return f32_err
 
 
@@ -638,53 +694,84 @@ def phase_serve(cfg, rng):
     return launches, gpu_mod, thr[2]
 
 
-def phase_times(rng, gpu_mod, wb, scale, bias, threshold):
+def stem_times(rng, wb, scale, bias):
+    """K1 at B 1 and 32, 640 px, uint8 in, float32 and bf16 out (bf16 out
+    with bf16-exact weights, as a bf16 model passes them): ms from CUDA
+    events (`cuda_ms`), device ms alone (`queued_ms`), plain ms, bound,
+    and the cuDNN yardstick (F.conv2d + F.batch_norm + F.silu in the
+    output's dtype on an NCHW copy of the image in that dtype, made
+    before the timing; timed only) by both clocks. Keys "b1", "b32",
+    "b1_bf16", "b32_bf16"."""
     import torch
     import torch.nn.functional as F
 
-    from yolox_tpu_torch import YoloxModule
-    from yolox_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
     from yolox_tpu_torch.ops.stem import (
         stem_conv_bn_act,
         stem_conv_bn_act_plain,
     )
 
-    # F.batch_norm with mean 0, var 1 - eps applies the same scale / bias
     c = wb.shape[0]
-    zeros = torch.zeros(c, device=wb.device)
-    var = torch.full((c,), 1.0 - 1e-3, device=wb.device)
-    times = {"stem": {}, "nms": {}, "serve": {}}
+    out = {}
     for b in (1, 32):
         img = torch.from_numpy(
             rng.integers(0, 256, (b, 640, 640, 3), dtype=np.uint8)).cuda()
         iters = 50 if b == 1 else 10
+        for dt in (torch.float32, torch.bfloat16):
+            w = wb if dt == torch.float32 else wb.bfloat16().float()
+            # F.batch_norm with mean 0, var 1 - eps applies scale / bias
+            zeros = torch.zeros(c, device=wb.device, dtype=dt)
+            var = torch.full((c,), 1.0 - 1e-3, device=wb.device, dtype=dt)
+            x_lib = img.permute(0, 3, 1, 2).to(dt).contiguous()
+            w_lib, s_lib, b_lib = w.to(dt), scale.to(dt), bias.to(dt)
 
-        def library():
-            x = img.permute(0, 3, 1, 2).float()
-            y = F.conv2d(x, wb, stride=2, padding=2)
-            y = F.batch_norm(y, zeros, var, scale, bias, False, 0.0, 1e-3)
-            return F.silu(y)
+            def kernel(w=w, dt=dt):
+                return stem_conv_bn_act(img, w, scale, bias, "silu", dt)
 
-        t = {
-            "ms": cuda_ms(lambda: stem_conv_bn_act(img, wb, scale, bias),
-                          iters),
-            "plain_ms": cuda_ms(
-                lambda: stem_conv_bn_act_plain(img, wb, scale, bias), iters),
-            "library_ms": cuda_ms(library, iters),
-        }
-        t["bound_ms"], t["bound_by"] = stem_bound(b, 640, 640, wb.shape[0],
-                                                  1, 4)
-        times["stem"][b] = t
-        log(f"K1 b{b} uint8 -> f32: {t}")
+            def library(x_lib=x_lib, w_lib=w_lib, s_lib=s_lib, b_lib=b_lib,
+                        zeros=zeros, var=var):
+                y = F.conv2d(x_lib, w_lib, stride=2, padding=2)
+                y = F.batch_norm(y, zeros, var, s_lib, b_lib, False, 0.0,
+                                 1e-3)
+                return F.silu(y)
 
+            t = {"ms": cuda_ms(kernel, iters),
+                 "device_ms": queued_ms(kernel, 20 if b == 1 else 5),
+                 "plain_ms": cuda_ms(lambda: stem_conv_bn_act_plain(
+                     img, w, scale, bias, "silu", dt), iters),
+                 "library_ms": cuda_ms(library, iters),
+                 "library_device_ms": queued_ms(library,
+                                                20 if b == 1 else 5)}
+            t["bound_ms"], t["bound_by"] = stem_bound(
+                b, 640, 640, c, 1, 4 if dt == torch.float32 else 2)
+            key = f"b{b}" + ("" if dt == torch.float32 else "_bf16")
+            out[key] = t
+            log(f"K1 {key} uint8 -> {dt}: {t}")
+            del x_lib
+    return out
+
+
+def phase_times(rng, gpu_mod, wb, scale, bias, threshold):
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+
+    times = {"stem": stem_times(rng, wb, scale, bias), "nms": {},
+             "serve": {}}
+    for b in (1, 32):
+        img = torch.from_numpy(
+            rng.integers(0, 256, (b, 640, 640, 3), dtype=np.uint8)).cuda()
+        iters = 50 if b == 1 else 10
         # K2 at the serve shape, on the candidates this batch produces
         boxes, valid = serve_candidates(gpu_mod, img, threshold)
         t = {"ms": cuda_ms(lambda: nms_keep(boxes, valid, 0.65), iters),
+             "device_ms": queued_ms(lambda: nms_keep(boxes, valid, 0.65),
+                                    20),
              "plain_ms": cuda_ms(lambda: nms_keep_plain(boxes, valid, 0.65),
                                  max(2, iters // 5), warmup=1),
-             "library_ms": None}
+             "library_ms": None, "library_device_ms": None}
         t["bound_ms"], t["bound_by"] = nms_bound(valid.cpu().numpy())
-        times["nms"][b] = t
+        times["nms"][f"b{b}"] = t
         log(f"K2 b{b} K {boxes.shape[1]} ({int(valid.sum())} valid): {t}")
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -795,11 +882,12 @@ TRAIN_LOSS_RTOL = 1e-3
 def _launch_counters():
     from yolox_tpu_torch.ops.conv_bwd import main_1x1, reduce_sums
     from yolox_tpu_torch.ops.nms_kernel import nms_keep
-    from yolox_tpu_torch.ops.shear_kernel import shear_x
+    from yolox_tpu_torch.ops.shear_kernel import shear_x, shear_xy
     from yolox_tpu_torch.ops.stem import stem_conv_bn_act
 
     return {"reduce_sums": reduce_sums, "main_1x1": main_1x1,
-            "stem": stem_conv_bn_act, "nms": nms_keep, "shear_x": shear_x}
+            "stem": stem_conv_bn_act, "nms": nms_keep, "shear_x": shear_x,
+            "shear_xy": shear_xy}
 
 
 def phase_conv_bwd(shapes, multiscale):
@@ -838,7 +926,7 @@ def phase_train(cfg, x, labels, n_kernel_convs):
 
     counters = _launch_counters()
     want = {"reduce_sums": n_kernel_convs, "main_1x1": n_kernel_convs,
-            "stem": 0, "nms": 0, "shear_x": 0}
+            "stem": 0, "nms": 0, "shear_x": 0, "shear_xy": 0}
     total = dict.fromkeys(counters, 0)
     for dtype in (torch.float32, torch.bfloat16):
         module = YoloxModule.from_config(cfg, rng_seed=4321)
@@ -1194,6 +1282,31 @@ def shear_bound(rows, out_wl, px, elt_bytes):
                                        else "operations")
 
 
+def shear_xy_bound(shifts_y, shifts_x, r, out_w, px, elt_bytes):
+    """Least time of the fused K5 on an H100 (ms) and what sets it: the
+    h1t values these shifts read, each once (output row i's taps need
+    h2[x, i] for x in [kx_i, kx_i + out_w], and h2[x, i] reads h1t rows
+    ky_x + i and ky_x + i + 1), the output written once and the shifts
+    read once; 4 float32 operations an h2 value and an output value."""
+    sy = np.asarray(shifts_y, np.float32)
+    sx = np.asarray(shifts_x, np.float32)
+    b, x = sy.shape
+    kx = np.clip(np.floor(sx), 0, x - out_w - 2).astype(np.int64)
+    xs = np.arange(x)
+    need = ((xs[None, None] >= kx[..., None])
+            & (xs[None, None] <= kx[..., None] + out_w))   # (B, S, X)
+    pad = np.zeros((b, 1, x), bool)
+    read = (np.concatenate([need, pad], 1)
+            | np.concatenate([pad, need], 1))              # rows i, i + 1
+    n_out = b * out_w * out_w * px
+    nbytes = ((int(read.sum()) * px + n_out) * elt_bytes
+              + 4 * (sy.size + sx.size))
+    ops = 4 * (int(need.sum()) * px + n_out)
+    t_bytes, t_ops = nbytes / H100_HBM_BYTES, ops / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
 def synthetic_tiles(rng, b, size=640, max_labels=60, num_classes=80):
     """Device-augmentation inputs: (tiles (b, 5, size, size, 3) uint8,
     tile_hw (b, 5, 2) float32, labels (b, 5, max_labels, 5) xyxy+cls). Each
@@ -1235,15 +1348,76 @@ def check_shear(name, img, shifts, out_w, px):
     return err
 
 
+def check_shear_xy(name, h1t, shifts_y, shifts_x, out_w, px):
+    """The fused K5 against its plain version on one input: bit-equal and
+    one launch, else fail. Returns the max abs difference (0)."""
+    import torch
+
+    from yolox_tpu_torch.ops.shear_kernel import shear_xy, shear_xy_plain
+
+    before = shear_xy.launches
+    got = shear_xy(h1t, shifts_y, shifts_x, out_w, px)
+    launched = shear_xy.launches - before
+    ref = shear_xy_plain(h1t, shifts_y, shifts_x, out_w, px)
+    torch.cuda.synchronize()
+    ok = got.dtype == h1t.dtype and torch.equal(got, ref) and launched == 1
+    err = float((got.float() - ref.float()).abs().max())
+    log(f"K5 fused {name} {tuple(h1t.shape)} {h1t.dtype} px {px} -> "
+        f"({out_w}, {out_w}): bit-equal {ok} (max |d| {err:.3g}), "
+        f"{launched} launch")
+    if not ok:
+        raise AssertionError(f"the fused K5 disagrees with its plain "
+                             f"version: {name}")
+    return err
+
+
+def xy_shifts(rng, kind, b, x, r, s, margin):
+    """(shifts_y (b, x), shifts_x (b, s)) float32 numpy for the fused K5:
+    "affine" as the warp gives them, "random" without a slope bound and
+    past both clamps, "edge" at the contract's edges."""
+    if kind == "affine":
+        # the warp's: cl * (x - margin) + margin and uu * i + margin
+        slope = rng.uniform(-SHEAR_SLOPE, SHEAR_SLOPE, (2, b, 1))
+        return (affine_shifts(rng, b, x, margin),
+                (margin + slope[1] * np.arange(s)[None]).astype(np.float32))
+    if kind == "random":
+        return (rng.uniform(-3, r - s + 2, (b, x)).astype(np.float32),
+                rng.uniform(-3, x - s + 2, (b, s)).astype(np.float32))
+    return shear_edge_shifts(b, x, r - s - 2), shear_edge_shifts(
+        b, s, x - s - 2)
+
+
 def phase_shear(rng):
-    """K5 against its plain version: the 640 px warp's two pass shapes at
-    B 16 with affine shifts in float32 and bf16, random per-row shifts
-    without a slope bound at px 1 and 3, and the edge shifts."""
+    """K5 against its plain versions. The fused kernel (`shear_xy`, the
+    main path's): the 640 px warp's shape at B 16 (h1t (16, WR, WR*3) ->
+    (16, 640, 640*3)) in float32 and bf16 on affine, unbounded random and
+    edge shifts, and a ragged size at px 1 and 3. The single-pass kernel
+    (`shear_x`): the warp's two pass shapes at B 16 with affine shifts,
+    random per-row shifts without a slope bound at px 1 and 3, and the
+    edge shifts."""
     import torch
 
     margin, wr = warp_grid()
     err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
+        img = torch.from_numpy(rng.uniform(0, 255, (TRAIN_B, wr, wr * 3))
+                               .astype(np.float32)).cuda().to(dtype)
+        for kind in ("affine", "random", "edge"):
+            sy, sx = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                      for a in xy_shifts(rng, kind, TRAIN_B, wr, wr, 640,
+                                         margin))
+            err = max(err, check_shear_xy(f"{kind} shifts", img, sy, sx,
+                                          640, 3))
+        del img
+        for px in (1, 3):
+            x, r, s = 301, 277, 200
+            img = torch.from_numpy(rng.uniform(0, 255, (3, x, r * px))
+                                   .astype(np.float32)).cuda().to(dtype)
+            for kind in ("affine", "random", "edge"):
+                sy, sx = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                          for a in xy_shifts(rng, kind, 3, x, r, s, 40))
+                err = max(err, check_shear_xy(f"{kind} shifts", img, sy, sx,
+                                              s, px))
         for name, rows, base in (("pass 2 (y-shear)", wr, margin),
                                  ("pass 3 (x-shear)", 640, margin)):
             img = torch.from_numpy(rng.uniform(0, 255, (TRAIN_B, rows,
@@ -1339,7 +1513,7 @@ def phase_train_aug(cfg, tiles, hw, labels, n_kernel_convs):
     )
 
     counters = _launch_counters()
-    want = {"shear_x": 2, "reduce_sums": n_kernel_convs,
+    want = {"shear_xy": 1, "shear_x": 0, "reduce_sums": n_kernel_convs,
             "main_1x1": n_kernel_convs, "stem": 0, "nms": 0}
     total = dict.fromkeys(counters, 0)
     args = [torch.from_numpy(a).cuda() for a in (tiles, hw, labels)]
@@ -1446,145 +1620,146 @@ def phase_aug_times(cfg, tiles, hw, labels):
 
 
 def shear_times(rng):
-    """K5 at the 640 px warp's two pass shapes, B 16, bf16 (the card's
-    buffer dtype on the main path) and float32: ms per launch, plain ms,
-    bound and the F.grid_sample yardstick (the same two-tap row lerp on a
-    planar (B, 3, H, W) copy, align_corners=True; timed only), the time of
-    the transpose copy that pass 3 reads, and the per-step sums of the two
-    passes."""
+    """K5 at the 640 px warp's shapes, B 16, bf16 (the card's buffer
+    dtype on the main path) and float32. The fused kernel (`shear_xy`,
+    h1t (16, WR, WR*3) -> (16, 640, 640*3), affine shifts as the warp
+    gives them): ms per launch from CUDA events, device ms alone
+    (`queued_ms`), plain ms, `shear_xy_bound`, and the F.grid_sample
+    yardstick (two calls, one per pass, each the same two-tap row lerp on
+    a planar (B, 3, H, W) copy, align_corners=True; timed only). Beside
+    it the two-launch path it replaced, on the same inputs: the
+    single-pass kernel (`shear_x`) on each pass and the transpose between
+    them, by both clocks, with the two passes' bounds."""
     import torch
     import torch.nn.functional as F
 
-    from yolox_tpu_torch.ops.shear_kernel import shear_x, shear_x_plain
+    from yolox_tpu_torch.ops.shear_kernel import (
+        shear_x,
+        shear_x_plain,
+        shear_xy,
+        shear_xy_plain,
+    )
 
     margin, wr = warp_grid()
+
+    def yardstick(img, shifts, dtype):
+        b, rows = shifts.shape
+        planar = img.reshape(b, rows, -1, 3).permute(0, 3, 1, 2).contiguous()
+        w = planar.shape[3]
+        gx = (torch.arange(640, device=img.device)[None, None]
+              + shifts[..., None]) * (2.0 / (w - 1)) - 1.0
+        gy = (torch.arange(rows, device=img.device) * (2.0 / (rows - 1))
+              - 1.0)[None, :, None].expand_as(gx)
+        grid = torch.stack([gx, gy], -1).to(dtype)
+        return lambda: F.grid_sample(planar, grid, mode="bilinear",
+                                     padding_mode="zeros", align_corners=True)
+
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        passes = {}
-        for key, rows in (("pass2", wr), ("pass3", 640)):
-            img = torch.from_numpy(rng.uniform(0, 255, (TRAIN_B, rows,
-                                                        wr * 3)).astype(
-                np.float32)).cuda().to(dtype)
-            shifts = torch.from_numpy(affine_shifts(rng, TRAIN_B, rows,
-                                                    margin)).cuda()
-            planar = img.reshape(TRAIN_B, rows, wr, 3).permute(
-                0, 3, 1, 2).contiguous()
-            gx = (torch.arange(640, device=img.device)[None, None]
-                  + shifts[..., None]) * (2.0 / (wr - 1)) - 1.0
-            gy = (torch.arange(rows, device=img.device) * (2.0 / (rows - 1))
-                  - 1.0)[None, :, None].expand_as(gx)
-            grid = torch.stack([gx, gy], -1).to(dtype)
-            t = {"ms": cuda_ms(lambda: shear_x(img, shifts, 640, 3), 20),
-                 "plain_ms": cuda_ms(lambda: shear_x_plain(img, shifts, 640,
-                                                           3), 5),
-                 "library_ms": cuda_ms(lambda: F.grid_sample(
-                     planar, grid, mode="bilinear", padding_mode="zeros",
-                     align_corners=True), 10)}
-            t["bound_ms"], t["bound_by"] = shear_bound(
-                TRAIN_B * rows, 640 * 3, 3, img.element_size())
-            t["shape"] = tuple(img.shape)
-            if key == "pass3":
-                # the contiguous transpose of pass 2's output that pass 3
-                # reads (`ops/warp.py:mosaic_affine_warp`)
-                h2 = torch.rand((TRAIN_B, wr, 640 * 3), device=img.device
-                                ).to(dtype)
-                t["transpose_ms"] = cuda_ms(lambda: h2.reshape(
-                    TRAIN_B, wr, 640, 3).transpose(1, 2).contiguous(), 20)
-                del h2
-            passes[key] = t
-            log(f"K5 {name} {key} {tuple(img.shape)}: {t}")
-            del img, planar, grid
-        step = {q: passes["pass2"][q] + passes["pass3"][q]
-                for q in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        step["bound_by"] = "bytes"
-        out[name] = {"per_step": step, **passes}
+        h1t = torch.from_numpy(rng.uniform(0, 255, (TRAIN_B, wr, wr * 3))
+                               .astype(np.float32)).cuda().to(dtype)
+        sy_np, sx_np = xy_shifts(rng, "affine", TRAIN_B, wr, wr, 640, margin)
+        sy, sx = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                  for a in (sy_np, sx_np))
+        h2 = shear_x(h1t, sy, 640, 3)
+        h2t = h2.reshape(TRAIN_B, wr, 640, 3).transpose(1, 2).reshape(
+            TRAIN_B, 640, wr * 3)
+        lib2, lib3 = yardstick(h1t, sy, dtype), yardstick(h2t, sx, dtype)
+
+        def fused():
+            return shear_xy(h1t, sy, sx, 640, 3)
+
+        def library():
+            return lib2(), lib3()
+
+        t = {"ms": cuda_ms(fused, 20), "device_ms": queued_ms(fused, 20),
+             "plain_ms": cuda_ms(lambda: shear_xy_plain(h1t, sy, sx, 640, 3),
+                                 5),
+             "library_ms": cuda_ms(library, 10),
+             "library_device_ms": queued_ms(library, 10)}
+        t["bound_ms"], t["bound_by"] = shear_xy_bound(
+            sy_np, sx_np, wr, 640, 3, h1t.element_size())
+        steps = {
+            "pass2": (lambda: shear_x(h1t, sy, 640, 3),
+                      lambda: shear_x_plain(h1t, sy, 640, 3), lib2, wr),
+            "transpose": (lambda: h2.reshape(TRAIN_B, wr, 640, 3).transpose(
+                1, 2).contiguous(), None, None, None),
+            "pass3": (lambda: shear_x(h2t, sx, 640, 3),
+                      lambda: shear_x_plain(h2t, sx, 640, 3), lib3, 640)}
+        two = {}
+        for key, (kern, plain, lib, rows) in steps.items():
+            r = {"ms": cuda_ms(kern, 20), "device_ms": queued_ms(kern, 20)}
+            if plain is not None:
+                r["plain_ms"] = cuda_ms(plain, 5)
+                r["library_ms"] = cuda_ms(lib, 10)
+                r["library_device_ms"] = queued_ms(lib, 10)
+                r["bound_ms"], r["bound_by"] = shear_bound(
+                    TRAIN_B * rows, 640 * 3, 3, h1t.element_size())
+            two[key] = r
+        two["per_step"] = {q: sum(two[k][q] for k in steps)
+                           for q in ("ms", "device_ms")}
+        two["per_step"]["bound_ms"] = (two["pass2"]["bound_ms"]
+                                       + two["pass3"]["bound_ms"])
+        out[name] = {**t, "two_launch_path": two}
+        log(f"K5 {name} fused (B {TRAIN_B}, {tuple(h1t.shape)} -> "
+            f"{(TRAIN_B, 640, 640 * 3)}): {t}")
+        log(f"K5 {name} two-launch path on the same inputs: {two}")
+        del h1t, h2, h2t, lib2, lib3
         torch.cuda.empty_cache()
     return out
 
 
-def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: torch is not installed", file=sys.stderr)
-        return 1
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs the port on a "
-              "GPU", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(REPO))
-    try:
-        from yolox_tpu_torch import YoloxConfig, YoloxModule
-        from yolox_tpu_torch.ops.nms_kernel import nms_keep
-        from yolox_tpu_torch.ops.stem import stem_conv_bn_act
-    except ImportError as e:
-        print(f"chip_smoke: run from a checkout of the repository ({e})",
-              file=sys.stderr)
-        return 1
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(2024)
+def run_serve(cfg, rng, lines):
+    """Phases 2-5; returns the kernels-line entries of K1 and K2."""
+    import torch
 
-    phase_start()
-    cfg = YoloxConfig.get_named_config("yolox_s")
-    stem_mod = YoloxModule.from_config(cfg, rng_seed=4321)
-    focus = stem_mod.backbone.backbone.stem
+    from yolox_tpu_torch import YoloxModule
     from yolox_tpu_torch.models.blocks import fold_focus_weight
 
+    stem_mod = YoloxModule.from_config(cfg, rng_seed=4321)
+    focus = stem_mod.backbone.backbone.stem
     wb = fold_focus_weight(focus.conv.conv.weight).contiguous()
+    del stem_mod
     c = wb.shape[0]
     scale = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).cuda()
     bias = torch.from_numpy(rng.uniform(-1, 1, c).astype(np.float32)).cuda()
     stem_err = phase_stem(rng, wb, scale, bias)
     phase_nms(rng)
-
     launches, gpu_mod, threshold = phase_serve(cfg, rng)
     times = phase_times(rng, gpu_mod, wb, scale, bias, threshold)
+    lines.append({"serve": times["serve"]})
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")
+    kernels = []
+    for name, source, replaces, n, err, t, unit in (
+            ("stem_conv_bn_act", "yolox_tpu_torch/csrc/stem.cu",
+             "yolox_tpu/ops/pallas_stem.py:89", launches["stem"], stem_err,
+             times["stem"], "one call at B 1, 640 px, uint8 in, float32 "
+             "out"),
+            ("nms_keep", "yolox_tpu_torch/csrc/nms.cu",
+             "yolox_tpu/ops/pallas_nms.py:31", launches["nms"], 0.0,
+             times["nms"], "one call at B 1, 640 px")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            **{k: t["b1"][k] for k in keys}, "unit": unit,
+            **{case: {k: t[case][k] for k in keys}
+               for case in t if case != "b1"},
+        })
+    return kernels
 
-    shapes = kernel_conv_shapes(gpu_mod)
-    log(f"{len(shapes)} 1x1 SiLU convs of yolox-s take K3 / K4: "
-        + json.dumps(sorted(set(shapes))))
-    if len(shapes) != 43:
-        raise AssertionError("yolox-s has 43 1x1 SiLU BaseConvs")
-    multiscale = sorted(set(kernel_conv_shapes(gpu_mod, 480))
-                        | set(kernel_conv_shapes(gpu_mod, 800)))
-    log(f"{len(multiscale)} distinct 1x1 shapes at 480 and 800 px: "
-        + json.dumps(multiscale))
-    del gpu_mod, stem_mod
+
+def run_train(cfg, rng, shapes, multiscale, lines):
+    """Phases 6-7; returns the kernels-line entries of K3 and K4."""
     conv_errs = phase_conv_bwd(shapes, multiscale)
     x_train = rng.uniform(0, 255, (TRAIN_B, 640, 640, 3)).astype(np.float32)
     labels = synthetic_labels(rng, TRAIN_B)
     train_launches = phase_train(cfg, x_train, labels, len(shapes))
     phase_train_parity(cfg, x_train, labels)
-    train_times = phase_train_times(cfg, x_train, labels)
+    lines.append({"train": phase_train_times(cfg, x_train, labels)})
     cb_times = conv_bwd_times(shapes)
-
-    shear_err = phase_shear(rng)
-    aug_parity = phase_augment_parity(rng)
-    tiles, tile_hw, tile_labels = synthetic_tiles(rng, TRAIN_B)
-    aug_launches = phase_train_aug(cfg, tiles, tile_hw, tile_labels,
-                                   len(shapes))
-    aug_times = phase_aug_times(cfg, tiles, tile_hw, tile_labels)
-    k5_times = shear_times(rng)
-
     kernels = []
-    for name, source, replaces, n, err, t in (
-            ("stem_conv_bn_act", "yolox_tpu_torch/csrc/stem.cu",
-             "yolox_tpu/ops/pallas_stem.py:89", launches["stem"], stem_err,
-             times["stem"]),
-            ("nms_keep", "yolox_tpu_torch/csrc/nms.cu",
-             "yolox_tpu/ops/pallas_nms.py:31", launches["nms"], 0.0,
-             times["nms"])):
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n, "max_abs_err": err,
-            "ms": t[1]["ms"], "plain_ms": t[1]["plain_ms"],
-            "bound_ms": t[1]["bound_ms"], "bound_by": t[1]["bound_by"],
-            "library_ms": t[1]["library_ms"],
-            "b32": {k: t[32][k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "library_ms")},
-        })
     for name, key, line, err in (
             ("reduce_sums", "k3", 123, conv_errs["k3"]),
             ("main_1x1", "k4", 162, conv_errs["k4"])):
@@ -1604,23 +1779,80 @@ def main() -> int:
             "largest": t["largest"], "most_frequent": t["most_frequent"],
             "bf16": cb_times["bfloat16"][key],
         })
+    return kernels
+
+
+def run_augment(cfg, rng, n_kernel_convs, lines):
+    """Phase 8; returns the kernels-line entry of K5."""
+    shear_err = phase_shear(rng)
+    aug_parity = phase_augment_parity(rng)
+    tiles, tile_hw, tile_labels = synthetic_tiles(rng, TRAIN_B)
+    aug_launches = phase_train_aug(cfg, tiles, tile_hw, tile_labels,
+                                   n_kernel_convs)
+    aug_times = phase_aug_times(cfg, tiles, tile_hw, tile_labels)
+    k5_times = shear_times(rng)
+    lines.append({"augment": {**aug_times, "card_vs_cpu": aug_parity,
+                              "launches": aug_launches}})
     t = k5_times["bfloat16"]
-    kernels.append({
-        "name": "shear_x", "route": "cuda",
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")
+    return [{
+        "name": "shear_xy", "route": "cuda",
         "source": "yolox_tpu_torch/csrc/warp.cu",
         "replaces": "yolox_tpu/ops/pallas_warp.py:196",
-        "launches": aug_launches["shear_x"], "max_abs_err": shear_err,
-        **{q: t["per_step"][q] for q in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")},
-        "unit": f"sum over the 2 launches (y- and x-shear) of one B "
+        "launches": aug_launches["shear_xy"], "max_abs_err": shear_err,
+        **{q: t[q] for q in keys},
+        "unit": f"one launch (passes 2 and 3 of the warp) of one B "
                 f"{TRAIN_B} 640 px augmented step, bf16",
-        "pass2": t["pass2"], "pass3": t["pass3"],
-        "float32": k5_times["float32"],
-    })
-    log(json.dumps({"serve": times["serve"]}))
-    log(json.dumps({"train": train_times}))
-    log(json.dumps({"augment": {**aug_times, "card_vs_cpu": aug_parity,
-                                "launches": aug_launches}}))
+        "float32": {q: k5_times["float32"][q] for q in keys},
+        # the single-pass kernel (shear_x, off the main path since the
+        # fusion: 0 launches there) and the transpose it needed
+        "two_launch_path": {"bfloat16": t["two_launch_path"],
+                            "float32": k5_times["float32"][
+                                "two_launch_path"]},
+    }]
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on a "
+              "GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    try:
+        from yolox_tpu_torch import YoloxConfig, YoloxModule
+    except ImportError as e:
+        print(f"chip_smoke: run from a checkout of the repository ({e})",
+              file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2024)
+
+    phase_start()
+    cfg = YoloxConfig.get_named_config("yolox_s")
+    lines = []
+    kernels = run_serve(cfg, rng, lines)
+    module = YoloxModule.from_config(cfg, rng_seed=4321)
+    shapes = kernel_conv_shapes(module)
+    log(f"{len(shapes)} 1x1 SiLU convs of yolox-s take K3 / K4: "
+        + json.dumps(sorted(set(shapes))))
+    if len(shapes) != 43:
+        raise AssertionError("yolox-s has 43 1x1 SiLU BaseConvs")
+    multiscale = sorted(set(kernel_conv_shapes(module, 480))
+                        | set(kernel_conv_shapes(module, 800)))
+    log(f"{len(multiscale)} distinct 1x1 shapes at 480 and 800 px: "
+        + json.dumps(multiscale))
+    del module
+    kernels += run_train(cfg, rng, shapes, multiscale, lines)
+    kernels += run_augment(cfg, rng, len(shapes), lines)
+    for line in lines:
+        log(json.dumps(line))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

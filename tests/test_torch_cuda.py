@@ -6,9 +6,12 @@ JAX, so on a machine without it run them past the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: K1 float32 at 1e-4 + 1e-6 |ref| (108-term sums reassociated),
-bf16 within one bf16 ulp; K2 bit-equal keep masks; K3 and K4 as
+bf16 within one bf16 ulp, plus for the tensor-core path (uint8 and bf16
+images) 2^-19 of |scale| sum |x w| (`chip_smoke.stem_limit`: the tensor
+core truncates the sums it forms); K2 bit-equal keep masks; K3 and K4 as
 `chip_smoke.check_conv_bwd` states them (relative to each output's sum
-of |terms|); K5 bit-equal to its plain version; the card's augmentation
+of |terms|); K5, fused and single-pass, bit-equal to its plain versions; the card's
+augmentation
 against the CPU's on the same draws as `chip_smoke.augment_card_vs_cpu`
 states them.
 """
@@ -29,7 +32,10 @@ from chip_smoke import (
     random_boxes,
     shear_edge_shifts,
     spread_scores,
+    stem_limit,
     synthetic_tiles,
+    warp_grid,
+    xy_shifts,
 )
 
 pytestmark = pytest.mark.cuda
@@ -44,34 +50,62 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("act", ["silu", "relu", "lrelu"])
-@pytest.mark.parametrize("c,h,w", [(32, 64, 96), (48, 34, 70), (8, 2, 2)])
-@pytest.mark.parametrize("in_dtype", ["uint8", "float32", "bfloat16"])
-def test_stem_kernel_matches_plain(cuda, in_dtype, c, h, w, act):
+def _stem_inputs(rng, c, cuda):
+    wb = torch.from_numpy(rng.uniform(-0.1, 0.1, (c, 3, 6, 6)).astype(
+        np.float32)).to(cuda)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.uniform(-1, 1, c).astype(np.float32)).to(cuda)
+    return wb, scale, bias
+
+
+def _check_stem(x, wb, scale, bias, act):
     from yolox_tpu_torch.ops.stem import (
         stem_conv_bn_act,
         stem_conv_bn_act_plain,
     )
 
-    rng = np.random.default_rng(c + h)
-    img = torch.from_numpy(rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8))
-    x = img.to(cuda, getattr(torch, in_dtype))
-    wb = torch.from_numpy(rng.uniform(-0.1, 0.1, (c, 3, 6, 6)).astype(
-        np.float32)).to(cuda)
-    scale = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(cuda)
-    bias = torch.from_numpy(rng.uniform(-1, 1, c).astype(np.float32)).to(cuda)
+    b, h, w, _ = x.shape
     for out_dtype in (torch.float32, torch.bfloat16):
         before = stem_conv_bn_act.launches
         got = stem_conv_bn_act(x, wb, scale, bias, act, out_dtype)
         assert stem_conv_bn_act.launches == before + 1
         ref = stem_conv_bn_act_plain(x, wb, scale, bias, act, out_dtype)
         torch.cuda.synchronize()
-        assert got.shape == (2, c, h // 2, w // 2) and got.dtype == out_dtype
+        assert got.shape == (b, wb.shape[0], h // 2, w // 2)
+        assert got.dtype == out_dtype
         err = (got.float() - ref.float()).abs()
-        if out_dtype == torch.float32:
-            assert (err <= 1e-4 + 1e-6 * ref.abs()).all()
-        else:
-            assert (err <= 2.0 ** -7 * ref.float().abs() + 1e-6).all()
+        assert (err <= stem_limit(x, wb, scale, ref.float(), out_dtype)).all()
+
+
+@pytest.mark.parametrize("act", ["silu", "relu", "lrelu"])
+@pytest.mark.parametrize("c,h,w", [(32, 64, 96), (48, 34, 70), (8, 2, 2),
+                                   (16, 64, 96), (24, 34, 70), (80, 64, 96),
+                                   (20, 416, 416), (200, 34, 70)])
+@pytest.mark.parametrize("in_dtype", ["uint8", "float32", "bfloat16"])
+def test_stem_kernel_matches_plain(cuda, in_dtype, c, h, w, act):
+    """uint8 and bf16 images take the tensor-core path, float32 ones (here
+    with fractional pixels) the CUDA-core loop; C 20 masks a partial n
+    tile, C 200 takes a second weight slab of 72 channels, 35 x 17 and
+    208 x 208 outputs ragged tiles."""
+    rng = np.random.default_rng(c + h)
+    img = rng.integers(0, 256, (2, h, w, 3)).astype(np.float32)
+    if in_dtype == "float32":
+        img += rng.uniform(0, 1, img.shape).astype(np.float32)
+    x = torch.from_numpy(img).to(cuda, getattr(torch, in_dtype))
+    _check_stem(x, *_stem_inputs(rng, c, cuda), act)
+
+
+@pytest.mark.parametrize("in_dtype", ["uint8", "bfloat16"])
+@pytest.mark.parametrize("c", [16, 32, 64, 80, 200])
+def test_stem_kernel_bf16_weights(cuda, in_dtype, c):
+    """bf16-exact weights (a bf16 model's): one product a tap instead of
+    three, the same result."""
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy(rng.integers(0, 256, (2, 130, 258, 3),
+                                      dtype=np.uint8)).to(
+        cuda, getattr(torch, in_dtype))
+    wb, scale, bias = _stem_inputs(rng, c, cuda)
+    _check_stem(x, wb.bfloat16().float(), scale, bias, "silu")
 
 
 @pytest.mark.parametrize("k", [1, 37, 128, 1000, 1024])
@@ -256,6 +290,45 @@ def test_shear_kernel_matches_plain(cuda, shifts, px, dtype):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("size", [416, 640])
+@pytest.mark.parametrize("shifts", ["affine", "random", "edge"])
+def test_shear_xy_kernel_matches_plain(cuda, shifts, size, dtype):
+    """The fused K5 at the warp's shapes (B 2): one launch, bit-equal to
+    the two single-pass shears with a transpose between them."""
+    from yolox_tpu_torch.ops.shear_kernel import shear_xy, shear_xy_plain
+
+    rng = np.random.default_rng(size)
+    margin, wr = warp_grid(size)
+    h1t = torch.from_numpy(rng.uniform(0, 255, (2, wr, wr * 3)).astype(
+        np.float32)).to(cuda, getattr(torch, dtype))
+    sy, sx = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+              for a in xy_shifts(rng, shifts, 2, wr, wr, size, margin))
+    before = shear_xy.launches
+    got = shear_xy(h1t, sy, sx, size, 3)
+    assert shear_xy.launches == before + 1
+    ref = shear_xy_plain(h1t, sy, sx, size, 3)
+    torch.cuda.synchronize()
+    assert got.dtype == h1t.dtype and got.shape == (2, size, size * 3)
+    assert torch.equal(got, ref)
+
+
+def test_shear_xy_kernel_raises_on_what_it_does_not_take(cuda):
+    from yolox_tpu_torch.ops.shear_kernel import shear_xy
+
+    h1t = torch.zeros((2, 12, 24), device=cuda)
+    sy, sx = torch.zeros((2, 12), device=cuda), torch.zeros((2, 8),
+                                                            device=cuda)
+    with pytest.raises(ValueError, match="px must be 1 or 3"):
+        shear_xy(h1t, sy, sx, 8, px=2)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        shear_xy(h1t.double(), sy, sx, 8, px=2)
+    with pytest.raises(ValueError, match="shifts must be float32"):
+        shear_xy(h1t[..., :12].contiguous(), sy.double(), sx, 8, px=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        shear_xy(h1t[..., :12], sy, sx, 8, px=1)
+
+
 def test_shear_kernel_raises_on_what_it_does_not_take(cuda):
     from yolox_tpu_torch.ops.shear_kernel import shear_x
 
@@ -273,14 +346,15 @@ def test_shear_kernel_raises_on_what_it_does_not_take(cuda):
 
 def test_augmented_step_on_cuda(cuda):
     """The card's augmentation against the CPU's on one set of draws, and
-    one augmented step of a small model on the card: K5 twice."""
+    one augmented step of a small model on the card: the fused K5 once,
+    the single-pass one never."""
     from yolox_tpu_torch import YoloxConfig, YoloxModule
     from yolox_tpu_torch.core import (
         init_train_state,
         make_augmented_train_step,
     )
     from yolox_tpu_torch.data import sample_augment_draws
-    from yolox_tpu_torch.ops.shear_kernel import shear_x
+    from yolox_tpu_torch.ops.shear_kernel import shear_x, shear_xy
 
     s = 128
     tiles, hw, labels = (torch.from_numpy(a) for a in synthetic_tiles(
@@ -294,10 +368,11 @@ def test_augmented_step_on_cuda(cuda):
     state = init_train_state(module)
     step = make_augmented_train_step(module, 8, compute_dtype=torch.bfloat16,
                                      fused_bwd=True)
-    before = shear_x.launches
+    before = (shear_xy.launches, shear_x.launches)
     state, losses = step(state, tiles, hw, labels,
                          torch.Generator(device=cuda).manual_seed(2), 0.01,
                          (s, s), (96, 96))
     torch.cuda.synchronize()
-    assert shear_x.launches == before + 2
+    assert (shear_xy.launches, shear_x.launches) == (before[0] + 1,
+                                                     before[1])
     assert all(torch.isfinite(v).all() for v in losses.values())

@@ -1,7 +1,11 @@
 """K1, the stem kernel's plain version, against the JAX package's stem.
 
 Held against the Pallas TPU kernel itself (`pallas_stem.stem_conv_bn_act`
-in TPU interpret mode on the CPU) and against `blocks.Focus`. Tolerances:
+in TPU interpret mode on the CPU) and against `blocks.Focus`; the rules
+the CUDA kernel's tensor-core path follows (`csrc/stem.cu`: the K order
+and padding of `gemm_w`, the weight split of `split3`), written out here
+as `_gemm_weight`, `_im2col` and `_bf16_terms`, are held here too.
+Tolerances:
 float32 outputs at rtol 1e-5 / atol 1e-3 (sums of 108 products of pixel
 values); bfloat16 outputs within one bf16 ulp of the reference value
 (|d| <= 2^-7 |ref|), the rounding step of the stored result.
@@ -12,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from jax.experimental.pallas import tpu as pltpu
 
 from yolox_tpu.models import blocks as jb
@@ -45,6 +50,40 @@ def _assert_bf16_close(got, want):
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
     assert np.all(np.abs(got - want) <= BF16_ULP * np.abs(want) + 1e-6)
+
+
+def _gemm_weight(wb: torch.Tensor) -> torch.Tensor:
+    """The (112, C) B matrix of K1's implicit GEMM: row k = (ky * 6 + kx)
+    * 3 + ci holds wb[:, ci, ky, kx] (a tap pair (k, k + 1) is adjacent in
+    an NHWC row), rows 108-111 zero."""
+    c = wb.shape[0]
+    w = wb.permute(2, 3, 1, 0).reshape(108, c)
+    return torch.cat([w, w.new_zeros((4, c))])
+
+
+def _im2col(x: torch.Tensor) -> torch.Tensor:
+    """The A matrix of K1's implicit GEMM: (B, H/2, W/2, 112) float64
+    patches of the NHWC image x, entry k = (ky * 6 + kx) * 3 + ci at output
+    (oy, ox) holding x[2 oy + ky - 2, 2 ox + kx - 2, ci] (0 outside the
+    image), the 4 pad entries 0 whatever the image holds."""
+    xp = F.pad(x.permute(0, 3, 1, 2).double(), (2, 2, 2, 2))  # (B, 3, H+4, W+4)
+    cols = F.unfold(xp, 6, stride=2)                          # (B, 3*36, L)
+    b, _, h, w = x.permute(0, 3, 1, 2).shape
+    cols = cols.reshape(b, 3, 6, 6, h // 2, w // 2).permute(0, 4, 5, 2, 3, 1)
+    cols = cols.reshape(b, h // 2, w // 2, 108)
+    return torch.cat([cols, cols.new_zeros(cols.shape[:3] + (4,))], -1)
+
+
+def _bf16_terms(w: torch.Tensor):
+    """(hi, mid, lo): float32 tensors of bf16 values with hi + mid + lo == w
+    exactly for float32 w of magnitude 2^-110 or more, or 0 (24 significant
+    bits in three 8-bit ones, the last still a normal number), as K1
+    splits its weights: hi = bf16(w), mid = bf16(w - hi), lo = bf16(w - hi
+    - mid). For bf16-exact weights mid and lo are 0."""
+    hi = w.to(torch.bfloat16).float()
+    r = w - hi
+    mid = r.to(torch.bfloat16).float()
+    return hi, mid, (r - mid).to(torch.bfloat16).float()
 
 
 @pytest.mark.parametrize("act", ["silu", "relu"])
@@ -143,3 +182,63 @@ def test_wrapper_runs_plain_only_on_cpu_and_checks_inputs():
         stem.stem_conv_bn_act(meta, wb, *args)
     with pytest.raises(AttributeError):
         stem.stem_conv_bn_act(torch.from_numpy(img), wb, *args, act="gelu")
+
+
+def test_gemm_order_matches_pallas_kernel():
+    """K1's implicit GEMM in its K order (k = (ky * 6 + kx) * 3 + ci,
+    padded to 112 with zero rows and zero A entries), summed in float64,
+    then eval BN and SiLU: the Pallas kernel's result."""
+    w, scale, bias, img = _inputs(5, c=24)
+    wb_j, wb_t = _folded_both(w)
+    x = torch.from_numpy(img)
+    a = _im2col(x)
+    bm = _gemm_weight(wb_t)
+    assert a.shape == (1, 32, 32, 112) and bm.shape == (112, 24)
+    assert not bm[108:].any() and not a[..., 108:].any()
+    # entry k of output (oy, ox) is x[2 oy + ky - 2, 2 ox + kx - 2, ci]
+    for k, oy, ox in ((0, 0, 0), (17, 5, 9), (59, 31, 31), (107, 12, 3)):
+        ky, kx, ci = k // 18, k % 18 // 3, k % 3
+        iy, ix = 2 * oy + ky - 2, 2 * ox + kx - 2
+        want = float(img[0, iy, ix, ci]) if 0 <= iy < 64 and 0 <= ix < 64 \
+            else 0.0
+        assert float(a[0, oy, ox, k]) == want
+        assert torch.equal(bm[k], wb_t[:, ci, ky, kx])
+    acc = (a.double() @ bm.double()).float()
+    got = F.silu(acc * torch.from_numpy(scale) + torch.from_numpy(bias))
+    with pltpu.force_tpu_interpret_mode():
+        want = pallas_stem.stem_conv_bn_act_s2d(
+            pallas_stem.s2d_prepare(jnp.asarray(img.astype(np.float32))),
+            wb_j, jnp.asarray(scale), jnp.asarray(bias),
+            jb.get_activation("silu"), out_dtype=jnp.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-3)
+    # the pad entries stay 0 whatever a float image holds
+    bad = x.float().clone()
+    bad[0, :4] = float("nan")
+    assert not _im2col(bad)[..., 108:].any()
+
+
+def test_bf16_terms_split_weights_exactly():
+    """Each term is bf16-exact and hi + mid + lo is the float32 weight
+    (24 significant bits in three of 8) from 2^-110 to the largest float32;
+    a bf16 weight
+    is its own hi, with mid and lo 0 (the kernel then runs one product)."""
+    rng = np.random.default_rng(6)
+    w = torch.from_numpy((rng.standard_normal(20000)
+                          * 10.0 ** rng.uniform(-30, 30, 20000)).astype(
+        np.float32))
+    w = torch.cat([w, torch.tensor([0.0, -0.0, 1.0, -2.0 ** -110, 3.3e38])])
+    hi, mid, lo = _bf16_terms(w)
+    for t in (hi, mid, lo):
+        assert t.dtype == torch.float32
+        assert torch.equal(t.bfloat16().float(), t)
+    assert torch.equal((hi + mid) + lo, w)
+    assert (mid.abs() <= 2.0 ** -8 * hi.abs()).all()
+    w16 = w.bfloat16().float()
+    hi16, mid16, lo16 = _bf16_terms(w16)
+    assert torch.equal(hi16, w16) and not mid16.any() and not lo16.any()
+    # three bf16 products summed exactly give the float32 weight's product
+    px = torch.from_numpy(rng.integers(0, 256, 5000).astype(np.float64))
+    ws = w[:5000].double()
+    split = sum(px * t[:5000].double() for t in (hi, mid, lo))
+    assert torch.equal(split, px * ws)

@@ -2,10 +2,11 @@
 package's (`yolox_tpu/ops/pallas_warp.py`), on the CPU.
 
 Inputs come from seeded numpy and go through both. Tolerances:
-- `shear_x_plain` vs `shear_x_reference`: atol 1e-4 on 0-255 data, with
-  shifts inside and outside [0, k_max] (extrapolated values stay below
-  1024, where a float32 ulp is 6.1e-5; XLA may contract the lerp into an
-  FMA);
+- `shear_x_plain` vs `shear_x_reference`, and the fused K5's plain
+  version `shear_xy_plain` vs JAX's pass 2 -> transpose -> pass 3: atol
+  1e-4 on 0-255 data, with shifts inside and outside [0, k_max]
+  (extrapolated values stay below 1024, where a float32 ulp is 6.1e-5;
+  XLA may contract the lerp into an FMA);
 - the scale pass, the full mosaic warp and the MixUp resample: atol 1e-3
   (float32 products summed in another order);
 - the three-pass warp against the port's single-pass `mosaic_warp`: exact
@@ -23,7 +24,7 @@ import torch
 from yolox_tpu.ops import pallas_warp as jw
 from yolox_tpu_torch.data.device_augment import mosaic_warp
 from yolox_tpu_torch.ops import warp as tw
-from yolox_tpu_torch.ops.shear_kernel import shear_x
+from yolox_tpu_torch.ops.shear_kernel import shear_x, shear_xy
 
 
 def _t(a):
@@ -57,6 +58,72 @@ def test_shear_plain_matches_reference(px):
     want16 = tw.shear_x_plain(_t(img).bfloat16().float(), _t(shifts), out_w,
                               px).bfloat16()
     assert got16.dtype == torch.bfloat16 and torch.equal(got16, want16)
+
+
+def _xy_shifts(rng, kind, b, x, r, s):
+    """shifts_y (b, x), shifts_x (b, s) float32: as the warp gives them
+    (affine, inside both clamps), without a slope bound and up to half a
+    pixel past both clamps (random), or at the contract's edges
+    (`chip_smoke.shear_edge_shifts`)."""
+    from chip_smoke import shear_edge_shifts
+
+    k2, k3 = r - s - 2, x - s - 2
+    if kind == "affine":
+        a = rng.uniform(-1, 1, (2, b, 1))
+        return ((k2 / 2 + a[0] * (k2 / 2 - 1) * (2 * np.arange(x) / x - 1))
+                .astype(np.float32),
+                (k3 / 2 + a[1] * (k3 / 2 - 1) * (2 * np.arange(s) / s - 1))
+                .astype(np.float32))
+    if kind == "random":
+        return (rng.uniform(-0.5, k2 + 1.5, (b, x)).astype(np.float32),
+                rng.uniform(-0.5, k3 + 1.5, (b, s)).astype(np.float32))
+    return shear_edge_shifts(b, x, k2), shear_edge_shifts(b, s, k3)
+
+
+@pytest.mark.parametrize("kind", ["affine", "random", "edge"])
+def test_shear_xy_plain_matches_jax_composition(kind):
+    """The fused K5's plain version against JAX's warp passes 2 and 3
+    (`pallas_warp.py:mosaic_affine_warp`): shear_x_reference, transpose,
+    shear_x_reference, at px 3 on a non-square h1t."""
+    rng = np.random.default_rng(["affine", "random", "edge"].index(kind))
+    b, x, r, s, px = 2, 40, 36, 24, 3
+    img = rng.uniform(0, 255, (b, x, r * px)).astype(np.float32)
+    sy, sx = _xy_shifts(rng, kind, b, x, r, s)
+    h2 = jw.shear_x_reference(jnp.asarray(img), jnp.asarray(sy), s, px)
+    h2t = jnp.transpose(h2.reshape(b, x, s, px), (0, 2, 1, 3)).reshape(
+        b, s, x * px)
+    want = np.asarray(jw.shear_x_reference(h2t, jnp.asarray(sx), s, px))
+    got = tw.shear_xy_plain(_t(img), _t(sy), _t(sx), s, px)
+    assert got.shape == (b, s, s * px) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    # the wrapper takes the plain version for CPU tensors, counting nothing
+    before = (shear_xy.launches, shear_x.launches)
+    assert torch.equal(shear_xy(_t(img), _t(sy), _t(sx), s, px), got)
+    assert (shear_xy.launches, shear_x.launches) == before
+    # bf16: h2 rounded to bf16 between the passes, each lerp in float32
+    img16 = _t(img).bfloat16()
+    h2_16 = tw.shear_x_plain(img16, _t(sy), s, px)
+    assert h2_16.dtype == torch.bfloat16
+    want16 = tw.shear_x_plain(h2_16.reshape(b, x, s, px).transpose(1, 2)
+                              .reshape(b, s, x * px), _t(sx), s, px)
+    assert torch.equal(tw.shear_xy_plain(img16, _t(sy), _t(sx), s, px),
+                       want16)
+
+
+def test_shear_xy_rejects_what_it_does_not_take():
+    img = torch.zeros((2, 12, 30))
+    sy, sx = torch.zeros((2, 12)), torch.zeros((2, 8))
+    assert shear_xy(img, sy, sx, 8, px=3).shape == (2, 8, 24)
+    with pytest.raises(ValueError, match="out_w"):
+        shear_xy(img, sy, torch.zeros((2, 9)), 9, px=3)  # R 10 < 9 + 2
+    with pytest.raises(ValueError, match="shifts_y"):
+        shear_xy(img, sy[:, :5], sx, 8, px=3)
+    with pytest.raises(ValueError, match="shifts_x"):
+        shear_xy(img, sy, sx[:1], 8, px=3)
+    with pytest.raises(ValueError, match="px"):
+        shear_xy(img, sy, sx, 8, px=4)
+    with pytest.raises(ValueError, match="device"):
+        shear_xy(img.to("meta"), sy.to("meta"), sx.to("meta"), 8, px=3)
 
 
 def test_shear_rejects_what_it_does_not_take():

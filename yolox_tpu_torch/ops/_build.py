@@ -48,7 +48,9 @@ SIGNATURES = {
     # K3 / K4: one packed argument struct (`conv_bwd._K3_ARGS`, `_K4_ARGS`)
     "conv_bwd": {"yolox_bn_silu_reduce": [ctypes.c_char_p, _P],
                  "yolox_conv1x1_bn_silu_bwd": [ctypes.c_char_p, _P]},
-    "warp": {"yolox_shear_x": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "warp": {"yolox_shear_x": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+             "yolox_shear_xy": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _P]},
 }
 
 _lock = threading.Lock()

@@ -4,15 +4,17 @@ Replaces the TPU kernel `yolox_tpu/ops/pallas_stem.py::_stem_kernel`,
 which computes the same function as an im2col matmul on the TPU's matrix
 unit over a space-to-depth copy of the image.
 
-Bound on an H100: 108 multiply-adds per output channel and pixel (0.71
-GFLOP per 640 px image for yolox-s, C = 32) in float32 on CUDA cores,
-against ~14 MB of traffic (uint8 in, f32 out), so the operations bound it
-(~11 us against ~4 us of memory time per image). cuDNN handles the
-3-channel input badly. The kernel reads the letterboxed NHWC batch (uint8
-or float) itself, keeps 32 channel sums per pixel in registers, and
-applies eval-mode BN and the activation in f32 before one NCHW store, so
-neither a float copy of the image nor the pre-BN conv output reaches
-device memory.
+Bound on an H100: bytes. 2 * 108 operations per output value take 0.023
+ms for 32 640 px images on the tensor cores, the NCHW store of the
+output 0.125 ms (float32) at 3.35 TB/s. The kernel reads the letterboxed
+NHWC batch itself and runs an implicit GEMM on the tensor cores (uint8 and
+bf16 images): K = the 108 taps, padded to 112 with zeros, the float32
+weights split into three bf16 terms (one when the weights are
+bf16-exact), sums in float32, 128 channels a pass over the batch. Eval
+BN and the activation run in float32 before one NCHW store of 16-byte
+vectors, so neither a float copy of the image nor the pre-BN conv output
+reaches device memory. A float32 image takes a CUDA-core loop in the same
+source.
 
 `stem_conv_bn_act` launches the kernel for CUDA tensors and runs the plain
 PyTorch version, `stem_conv_bn_act_plain`, only for CPU tensors.

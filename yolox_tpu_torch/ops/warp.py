@@ -17,8 +17,9 @@ runs as three passes (`data/device_augment.py` is the consumer):
   3. **x-shear**: out[i, j] = h2[i, j + uU*i + m], a per-row horizontal
      fractional shift.
 
-Passes 2 and 3 are the kernel K5 (`ops/shear_kernel.py::shear_x`, CUDA for
-CUDA tensors, `shear_x_plain` for CPU tensors). The three passes differ
+Passes 2 and 3 are the kernel K5, fused into one launch on CUDA tensors
+(`ops/shear_kernel.py::shear_xy`; `shear_xy_plain`, the two single-pass
+shears and a transpose, on CPU tensors). The three passes differ
 from single-pass bilinear (`data/device_augment.py::mosaic_warp`) only in
 interpolation order; the decomposition needs |rotation + shear| < 90°,
 which the augmentation ranges guarantee.
@@ -37,14 +38,19 @@ from typing import Tuple
 
 import torch
 
-from yolox_tpu_torch.ops.shear_kernel import shear_x, shear_x_plain
+from yolox_tpu_torch.ops.shear_kernel import (
+    shear_x,
+    shear_x_plain,
+    shear_xy,
+    shear_xy_plain,
+)
 
 PAD = 114.0
 
 __all__ = ["PAD", "affine_inverse_2x3", "compute_dtype_for", "default_margin",
            "ldu_decompose", "margin_for", "margin_for_slope", "mixup_resample",
            "mosaic_affine_warp", "scale_resample_tiles", "shear_x",
-           "shear_x_plain"]
+           "shear_x_plain", "shear_xy", "shear_xy_plain"]
 
 
 def margin_for_slope(s: int, slope: float) -> int:
@@ -229,15 +235,15 @@ def mosaic_affine_warp(tiles, tile_hw, m, xc, yc, out_size: Tuple[int, int],
                                transposed_out=True, compute_dtype=cdt,
                                out_dtype=cdt).reshape(b, wr, wr * 3)
     # pass 2 (y-shear): h2[r, s'] = h1[r + cl*(s' - margin), s'], run as an
-    # x-shear over the channel-interleaved transposed rows
+    # x-shear over the channel-interleaved transposed rows; pass 3
+    # (x-shear): out[i, j] = h2[i, j + uu*i + margin]. One kernel on the
+    # card (h2 stays on chip), the two shears and a transpose on the CPU.
     col = torch.arange(wr, dtype=torch.float32, device=dev)
     shifts_y = cl[:, None] * (col - margin) + margin            # (B, WR)
-    h2 = shear_x(h1t, shifts_y.contiguous(), s, px=3)          # (B, WR, S*3)
-    # pass 3 (x-shear): out[i, j] = h2[i, j + uu*i + margin]
-    h2t = h2.reshape(b, wr, s, 3).transpose(1, 2).reshape(b, s, wr * 3)
     row = torch.arange(s, dtype=torch.float32, device=dev)
     shifts_x = uu[:, None] * row + margin                       # (B, S)
-    out = shear_x(h2t.contiguous(), shifts_x.contiguous(), s, px=3)
+    out = shear_xy(h1t, shifts_y.contiguous(), shifts_x.contiguous(), s,
+                   px=3)
     return out.reshape(b, s, s, 3).to(out_dtype)
 
 
