@@ -12,21 +12,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    shapes (B 1 and 8, 640 px, C 32 (yolox-s) and 80 (yolox-x), uint8 /
    float32 / bf16 in, float32 / bf16 out, float32 weights and
    bf16-exact ones) at `stem_limit`;
-3. K2, the NMS kernel, against its plain version: bit-equal keep masks on
-   random boxes (B 8, K 1024, with and without the class offset) and on
-   edge cases (zero-area, identical, touching, negative-extent boxes, IoU
-   exactly at the threshold, all-invalid rows, K 128);
+3. K2, the NMS kernel (one launch a call), against its plain version:
+   bit-equal keep masks on random boxes (B 8, K 1024, with and without
+   the class offset) and on edge cases (zero-area, identical, touching,
+   negative-extent boxes, IoU exactly at the threshold, all-invalid rows,
+   K 128);
 4. the serving path of yolox-s at full width and 640 px: `Yolox.__call__`
    on 1, 3 and 8 uint8 frames and `Yolox.stream` over 10 frames, with the
    kernels' launch counters read around that run; the results against the
    same model on the CPU (plain versions); `YoloxModule.serve` and
    `YoloxModule.__call__` against the committed goldens
    `tests/golden/s_serve_seed4321.npz` and `s_seed4321.npz`;
-5. times after warm-up at B 1 and 32: K1 (uint8 in, float32 and bf16
-   out) and K2 by CUDA events and by device time alone (`queued_ms`),
-   their plain versions, K1's cuDNN yardstick in the output's dtype, the
-   bounds (`stem_bound`, `nms_bound`), and serve latency (B 1) and
-   throughput (B 32) in float32 and bfloat16;
+5. times after warm-up: K1 at B 1 and 32 (uint8 in, float32 and bf16
+   out) and K2 at `NMS_CASES` (serving's candidates at B 1 and 32,
+   evaluation's at K 1024 (B 1 and 32), 2048, 4096 and 8400) by CUDA
+   events and by device time alone (`queued_ms`), their plain versions,
+   K1's cuDNN yardstick in the output's dtype, the bounds (`stem_bound`,
+   `nms_bound`), and on K2's log lines its walk floor (`walk_floor_ms`)
+   and device ms a walked box, and serve latency
+   (B 1) and throughput (B 32) in float32 and bfloat16;
 6. K3 and K4, the fused Conv-BN-SiLU backward kernels, against their plain
    versions at all 43 1x1 SiLU conv shapes of yolox-s (B 16, 640 px) and
    at the distinct shapes of 480 and 800 px multiscale steps (HW 225,
@@ -65,8 +69,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    `shear_xy_bound`, the `F.grid_sample` yardstick and the two-launch
    path it replaced (both passes and the transpose, each timed).
 
-Then JSON lines with the serve, training and augmentation times and the
-kernels, the `nvidia-smi` name and power limit, and as the last line
+9. (run after phase 5) evaluation: K2 bit-equal to its plain version at K
+   1024, 1025, 2048, 4096 and 8400 (`phase_nms_any_k`); the oracle
+   (`phase_oracle`: the ground truth at 0.99 under 1000 jittered
+   duplicates of each box, through `CocoEvaluator` at max_det 1024 and
+   2048 on the card and on the CPU: AP50 > 0.99, equal statistics and
+   detections, only the ground truth kept); yolox-s at full width and
+   depth through `get_evaluator` / `eval` on 64 in-memory images whose
+   longer side is 640 (`phase_eval_model`: float32 against the CPU at
+   `assert_dets_match` and `EVAL_F32_STAT_TOL`, bf16 at `EVAL_BF16_*`,
+   the launch counters read around each card run, the COCO matching
+   path printed); evaluation images/s over the set repeated 10 times (640
+   images) and device ms a batch at B 32 in float32 and bf16 with a
+   breakdown by stage (`eval_times`).
+
+Then JSON lines with the serve, evaluation, training and augmentation
+times and the kernels, the `nvidia-smi` name and power limit, and as the last line
 `{"ok": true, "device": {...}}`.
 
 TF32 is turned off here (cuDNN and matmul) before any comparison with
@@ -98,6 +116,9 @@ H100_HBM_BYTES = 3.35e12
 # three more (4)
 K3_OPS = 15
 K4_EPI_OPS = 16
+# SM boost clock of the H100 SXM (data sheet): K2's serial floor counts
+# one cycle a walked box
+H100_CLOCK_HZ = 1.98e9
 # float operations of one IoU and its test in `pairwise_iou_xyxy`
 # (4 max/min, 2 compares, 4 subtracts, 3 multiplies, 2 adds, 1 divide, 1 compare)
 IOU_FLOPS = 17
@@ -120,13 +141,15 @@ def random_boxes(rng, b, k, lo=50.0, hi=500.0):
 
 
 def nms_edge_cases(k=128):
-    """(boxes (6, k, 4) float32, valid (6, k) bool) of cases where IoU
+    """(boxes (7, k, 4) float32, valid (7, k) bool) of cases where IoU
     formulas part ways: identical boxes; zero-area boxes; boxes touching
     along an edge or at a corner; negative extents; pairs with IoU exactly
-    0.5; an all-invalid row."""
+    0.5; an all-invalid row; and a chain (box i overlaps i + 1 at IoU 0.5
+    and i + 2 at 0.2), whose greedy result depends on every earlier
+    decision."""
     rng = np.random.default_rng(11)
-    boxes = np.zeros((6, k, 4), np.float32)
-    valid = np.ones((6, k), bool)
+    boxes = np.zeros((7, k, 4), np.float32)
+    valid = np.ones((7, k), bool)
     boxes[0] = [10, 20, 60, 90]                                # identical
     pts = rng.integers(0, 40, (k, 2)).astype(np.float32)       # zero area
     ext = rng.integers(0, 3, (k, 2)).astype(np.float32) * 10
@@ -150,6 +173,8 @@ def nms_edge_cases(k=128):
     boxes[4] = half
     boxes[5] = random_boxes(rng, 1, k)[0]                       # all invalid
     valid[5] = False
+    x = np.arange(k, dtype=np.float32) * 10                     # chain
+    boxes[6] = np.stack([x, np.zeros(k), x + 30, np.full(k, 10)], 1)
     valid[1, ::7] = False
     return boxes, valid
 
@@ -275,6 +300,35 @@ def nms_bound(valid):
     t_bytes, t_ops = nbytes / H100_HBM_BYTES, flops / H100_F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def walk_floor_ms(valid):
+    """K2's serial floor (ms) and the boxes it walks: the greedy walk takes
+    one dependent step a box up to each image's last valid one, at least
+    one clock cycle of an SM (`H100_CLOCK_HZ`) each; images walk in
+    parallel, so the longest walk counts."""
+    v = np.asarray(valid)
+    n = np.where(v.any(1), v.shape[1] - np.argmax(v[:, ::-1], 1), 0)
+    return 1e3 * float(n.max()) / H100_CLOCK_HZ, int(n.max())
+
+
+# K2's timed cases: (name, batch, max_det, score threshold or None for the
+# serve threshold). Serving hands K2 the top 1024 candidates above the
+# request's threshold; evaluation (`YoloxConfig.test_conf` 0.01) the top
+# max_det above 0.01, nearly all of them valid at 1024.
+NMS_CASES = (("serve_b1", 1, 1024, None), ("serve_b32", 32, 1024, None),
+             ("eval_b1", 1, 1024, 0.01), ("eval_b32", 32, 1024, 0.01),
+             ("k2048_b1", 1, 2048, 0.01), ("k4096_b1", 1, 4096, 0.01),
+             ("k8400_b1", 1, 8400, 0.01), ("k8400_b32", 32, 8400, 0.01))
+
+
+def nms_cases(module, threshold, frames):
+    """{case: (boxes, valid)}: the class-offset candidates that
+    `YoloxModule.serve` hands K2 for the first B of `frames` (uint8, 640
+    px, 8400 anchors) at each of `NMS_CASES`."""
+    return {name: serve_candidates(module, frames[:b],
+                                   threshold if conf is None else conf, k)
+            for name, b, k, conf in NMS_CASES}
 
 
 def conv_bwd_case(seed, b, ci, co, h, w, dtype, device):
@@ -758,21 +812,27 @@ def phase_times(rng, gpu_mod, wb, scale, bias, threshold):
 
     times = {"stem": stem_times(rng, wb, scale, bias), "nms": {},
              "serve": {}}
-    for b in (1, 32):
-        img = torch.from_numpy(
-            rng.integers(0, 256, (b, 640, 640, 3), dtype=np.uint8)).cuda()
-        iters = 50 if b == 1 else 10
-        # K2 at the serve shape, on the candidates this batch produces
-        boxes, valid = serve_candidates(gpu_mod, img, threshold)
-        t = {"ms": cuda_ms(lambda: nms_keep(boxes, valid, 0.65), iters),
+    # K2 on the candidates yolox-s hands it: serving at B 1 and 32, and
+    # evaluation (conf 0.01) at K 1024 to 8400
+    frames = rng.integers(0, 256, (32, 640, 640, 3), dtype=np.uint8)
+    for name, (boxes, valid) in nms_cases(gpu_mod, threshold,
+                                          frames).items():
+        b, k = valid.shape
+        t = {"ms": cuda_ms(lambda: nms_keep(boxes, valid, 0.65), 50),
              "device_ms": queued_ms(lambda: nms_keep(boxes, valid, 0.65),
                                     20),
+             # the plain version's (B, K, K) IoU past 2 GB is not timed
              "plain_ms": cuda_ms(lambda: nms_keep_plain(boxes, valid, 0.65),
-                                 max(2, iters // 5), warmup=1),
+                                 2, warmup=1)
+             if b * k * k * 4 <= 2 << 30 else None,
              "library_ms": None, "library_device_ms": None}
-        t["bound_ms"], t["bound_by"] = nms_bound(valid.cpu().numpy())
-        times["nms"][f"b{b}"] = t
-        log(f"K2 b{b} K {boxes.shape[1]} ({int(valid.sum())} valid): {t}")
+        vnp = valid.cpu().numpy()
+        t["bound_ms"], t["bound_by"] = nms_bound(vnp)
+        t["walk_floor_ms"], walked = walk_floor_ms(vnp)
+        t["device_ms_per_walked_box"] = t["device_ms"] / max(walked, 1)
+        t.update(B=b, K=k, valid=int(vnp.sum()), walked=walked)
+        times["nms"][name] = t
+        log(f"K2 {name}: {t}")
 
     for dtype in (torch.float32, torch.bfloat16):
         mod = gpu_mod if dtype == torch.float32 else \
@@ -843,9 +903,9 @@ def device_time(fn, reps=2):
     return sum(per_kernel.values()), top
 
 
-def serve_candidates(module, img, threshold):
+def serve_candidates(module, img, threshold, max_det=1024):
     """The class-offset candidate boxes and valid mask that serve hands K2
-    for this batch (max_det 1024)."""
+    for this batch."""
     import torch
 
     from yolox_tpu_torch.ops import nms as nms_ops
@@ -859,7 +919,7 @@ def serve_candidates(module, img, threshold):
 
     nms_ops.nms_keep = spy
     try:
-        module.serve(img, conf_thre=threshold, max_det=1024)
+        module.serve(img, conf_thre=threshold, max_det=max_det)
     finally:
         nms_ops.nms_keep = real
     torch.cuda.synchronize()
@@ -1710,6 +1770,486 @@ def shear_times(rng):
     return out
 
 
+# ------------------------------------------------------ evaluation phase
+
+CARD = "cuda"       # the evaluation phase's device
+EVAL_N = 64         # synthetic evaluation images, longer side 640
+EVAL_B = 32         # evaluation batch
+EVAL_WINDOW = 10    # the timed evaluation: the set 10 times, 640 images
+# image shapes (h, w) the set cycles through: longer side 640, so the
+# letterbox ratio is 1 and no resize (no cv2, no Pillow) is needed
+EVAL_SHAPES = ((640, 640), (480, 640), (640, 480), (512, 640), (640, 427),
+               (360, 640))
+# card against CPU, float32 with TF32 off: each image's detections at
+# `assert_dets_match`'s rtol 1e-4 / atol 1e-2, at a score threshold in a
+# gap of the CPU's scores; the 12 COCO statistics within EVAL_F32_STAT_TOL
+# (the set's ground truth is the CPU run's own detections, so both score
+# ~1, and boxes that agree to 1e-4 relative match them the same way)
+EVAL_F32_STAT_TOL = 1e-3
+# bf16 (a bf16 module, half=True): each layer rounds to bf16, and cuDNN
+# and the CPU round at other points, so scores part by ~1% (10% at worst)
+# and boxes by ~1 px. Held: at least EVAL_BF16_MATCH of the CPU bf16
+# run's detections have a card detection of the same class with IoU >=
+# 0.9 and score within 10% relative; detection counts within 5%; the
+# statistics within EVAL_BF16_STAT_TOL
+EVAL_BF16_MATCH = 0.95
+EVAL_BF16_STAT_TOL = 0.02
+# the oracle: ~1000 jittered duplicates of each ground-truth box (IoU >
+# 0.9 with it, lower scores, the same class) that K2 must suppress
+ORACLE_DUPS = 1000
+
+
+def eval_images(n=EVAL_N, seed=5):
+    """n seeded BGR uint8 images of `EVAL_SHAPES`."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, EVAL_SHAPES[i % len(EVAL_SHAPES)] + (3,),
+                         dtype=np.uint8) for i in range(n)]
+
+
+def coco_json(path, images, boxes):
+    """A COCO annotation file for `images` (ids 0..n-1) and per-image
+    (m, 5) rows (x1, y1, x2, y2, class index) over the 80 COCO classes
+    (category id = class index + 1)."""
+    from yolox_tpu_torch.data import COCO_CLASSES
+
+    anns, k = [], 0
+    for i, rows in enumerate(boxes):
+        for x1, y1, x2, y2, c in rows:
+            k += 1
+            anns.append({"id": k, "image_id": i, "category_id": int(c) + 1,
+                         "bbox": [float(x1), float(y1), float(x2 - x1),
+                                  float(y2 - y1)],
+                         "area": float((x2 - x1) * (y2 - y1)),
+                         "iscrowd": 0})
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps({
+        "images": [{"id": i, "height": int(im.shape[0]),
+                    "width": int(im.shape[1]), "file_name": f"{i:012}.jpg"}
+                   for i, im in enumerate(images)],
+        "annotations": anns,
+        "categories": [{"id": c + 1, "name": name}
+                       for c, name in enumerate(COCO_CLASSES)]}))
+
+
+def eval_config(cfg, root, images, conf):
+    """A copy of `cfg` whose evaluation set is `images`, held in memory
+    (`root/annotations/instances_val2017.json` holds their annotations),
+    with `test_conf` = conf."""
+    from yolox_tpu_torch.data import CocoDataset, ValTransform
+
+    class InMemoryCoco(CocoDataset):
+        def load_image(self, index):
+            return images[self.ids[index]]
+
+    class EvalConfig(type(cfg)):
+        def get_eval_dataset(self, **kwargs):
+            return InMemoryCoco(data_dir=root,
+                                json_file="instances_val2017.json",
+                                name="val2017", img_size=self.test_size,
+                                preproc=ValTransform())
+
+    out = EvalConfig()
+    out.__dict__.update(cfg.__dict__)
+    out.data_dir, out.test_conf, out.data_num_workers = root, conf, 0
+    return out
+
+
+def run_evaluation(ecfg, module, half=False, outputs=True):
+    """`get_evaluator` + `eval`: (stats, {image id: (n, 7) rows (box,
+    score, 1, category)} when `outputs`, the evaluator, wall seconds)."""
+    import torch
+
+    evaluator = ecfg.get_evaluator(EVAL_B)
+    t0 = time.perf_counter()
+    res = ecfg.eval(module, evaluator, half=half, return_outputs=outputs)
+    if module.device.type != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not outputs:
+        return evaluator.stats, None, evaluator, wall
+    out = res[1]
+    rows = {}
+    for img_id, o in out.items():
+        n = len(o["scores"])
+        rows[img_id] = np.concatenate(
+            [np.asarray(o["bboxes"], np.float64).reshape(n, 4),
+             np.asarray(o["scores"], np.float64)[:, None], np.ones((n, 1)),
+             np.asarray(o["categories"], np.float64)[:, None]], 1)
+    return evaluator.stats, rows, evaluator, wall
+
+
+def _box_iou(a, b):
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:4], b[None, :, 2:4])
+    inter = np.prod(np.clip(rb - lt, 0, None), -1)
+    area = lambda x: np.prod(x[:, 2:4] - x[:, :2], -1)  # noqa: E731
+    return inter / (area(a)[:, None] + area(b)[None] - inter)
+
+
+def bf16_match_fraction(got, want):
+    """Share of `want`'s detection rows (all images) that a `got` row of
+    the same category matches at IoU >= 0.9 and score within 10%."""
+    hit = total = 0
+    for img_id, w in want.items():
+        total += len(w)
+        g = got.get(img_id, np.zeros((0, 7)))
+        if not len(w) or not len(g):
+            continue
+        iou = _box_iou(w[:, :4], g[:, :4])
+        same = (w[:, None, 6] == g[None, :, 6]) & (np.abs(
+            w[:, None, 4] - g[None, :, 4]) <= 0.1 * w[:, None, 4])
+        hit += int(((iou >= 0.9) & same).any(1).sum())
+    return hit / max(total, 1)
+
+
+def phase_nms_any_k(rng):
+    """K2 bit-equal to its plain version past the old 1024 limit: K 1024,
+    1025, 2048, 4096 and 8400 with scattered and prefix valid masks at
+    thr 0.3 and 0.65 (B so that the plain version's (B, K, K) float32 IoU
+    stays under ~0.6 GB), each G (row tiles a block), the ring forced to
+    1 and 8 rows, and the edge cases at thr 0 and 1."""
+    import torch
+
+    from yolox_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+
+    def check(name, boxes, valid, thr, rows=None, group=None):
+        got = nms_keep(boxes, valid, thr, rows, group)
+        if not torch.equal(got, nms_keep_plain(boxes, valid, thr)):
+            raise AssertionError(f"K2 disagrees with its plain version: "
+                                 f"{name} thr {thr}")
+        return int(got.sum())
+
+    kept = {}
+    for k, b in ((1024, 32), (1025, 16), (2048, 8), (4096, 4), (8400, 2)):
+        boxes = torch.from_numpy(random_boxes(rng, b, k, 50.0, 400.0)).cuda()
+        scattered = torch.from_numpy(rng.random((b, k)) > 0.2).cuda()
+        prefix = torch.arange(k, device=boxes.device)[None] < \
+            torch.from_numpy(rng.integers(k // 2, k + 1, (b, 1))).cuda()
+        for vname, valid in (("scattered", scattered), ("prefix", prefix)):
+            for thr in (0.3, 0.65):
+                kept[f"k{k} b{b} {vname} {thr}"] = check(
+                    f"K {k} B {b} {vname}", boxes, valid, thr)
+        if k in (1025, 8400):
+            for rows, group in ((1, 4), (8, 2)):
+                check(f"K {k} ring rows {rows} G {group}", boxes, scattered,
+                      0.5, rows, group)
+        for group in (1, 2, 4):
+            check(f"K {k} G {group}", boxes, prefix, 0.65, None, group)
+    eb, ev = (torch.from_numpy(a).cuda() for a in nms_edge_cases())
+    for thr in (0.0, 1.0):
+        check("edge cases", eb, ev, thr)
+    log("K2 bit-equal to its plain version at K 1024-8400 (scattered and "
+        "prefix valid, thr 0.3 / 0.65, G 1 / 2 / 4, forced ring sizes, edge "
+        "cases); "
+        "kept: " + json.dumps(kept))
+
+
+def oracle_boxes(rng, images):
+    """Per image 1-4 ground-truth boxes of random classes in distinct cells
+    of a 3 x 3 grid over the image (no two overlap)."""
+    out = []
+    for im in images:
+        h, w = im.shape[:2]
+        cells = rng.permutation(9)[:int(rng.integers(1, 5))]
+        rows = []
+        for c in cells:
+            cy, cx = divmod(int(c), 3)
+            bw, bh = rng.uniform(0.3, 0.9) * w / 3, rng.uniform(0.3, 0.9) * h / 3
+            x1 = cx * w / 3 + rng.uniform(0, w / 3 - bw)
+            y1 = cy * h / 3 + rng.uniform(0, h / 3 - bh)
+            rows.append((x1, y1, x1 + bw, y1 + bh, int(rng.integers(0, 80))))
+        out.append(np.asarray(rows))
+    return out
+
+
+class OracleModel:
+    """Decoded predictions (B, A, 85) for the batch's images: each ground
+    truth box at 0.99, then `ORACLE_DUPS` copies of it with every side
+    moved by up to 2% of the box's size (IoU > 0.9) at scores in (0.2,
+    0.9), the rest of the A rows empty. `ids` is set by `IdsLoader`."""
+
+    def __init__(self, dataset, device, anchors):
+        self.dataset, self.device, self.anchors = dataset, device, anchors
+        self.ids = []
+
+    def __call__(self, x):
+        import torch
+
+        out = np.zeros((x.shape[0], self.anchors, 85), np.float32)
+        out[..., 2:4] = 1.0
+        for i, idx in enumerate(self.ids):
+            rng = np.random.default_rng(1000 + idx)
+            labels = self.dataset.load_anno(idx)
+            n = len(labels)
+            for k, (x1, y1, x2, y2, c) in enumerate(labels):
+                size = np.array([x2 - x1, y2 - y1] * 2)
+                dup = np.array([x1, y1, x2, y2]) + rng.uniform(
+                    -0.02, 0.02, (ORACLE_DUPS, 4)) * size
+                sl = slice(n + k * ORACLE_DUPS, n + (k + 1) * ORACLE_DUPS)
+                out[i, sl, 0:2] = (dup[:, :2] + dup[:, 2:]) / 2
+                out[i, sl, 2:4] = dup[:, 2:] - dup[:, :2]
+                out[i, sl, 4] = rng.uniform(0.2, 0.9, ORACLE_DUPS)
+                out[i, sl, 5 + int(c)] = 1.0
+                out[i, k, :4] = [(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1,
+                                 y2 - y1]
+                out[i, k, 4] = out[i, k, 5 + int(c)] = 0.99
+        return torch.from_numpy(out).to(self.device)
+
+
+class IdsLoader:
+    """A loader that tells a model (`.ids`) which images each batch holds:
+    the oracle here, the tests' ground-truth models."""
+
+    def __init__(self, loader, model):
+        self.loader, self.model = loader, model
+        self.dataset, self.batch_sampler = loader.dataset, loader.batch_sampler
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for imgs, targets, infos, ids in self.loader:
+            self.model.ids = [int(np.asarray(i).reshape(-1)[0]) for i in ids]
+            yield imgs, targets, infos, ids
+
+
+def phase_oracle(cfg, rng, root):
+    """The oracle evaluation on the card and on the CPU at max_det 1024
+    and 2048: AP50 > 0.99, every statistic and every image's detections
+    equal to the CPU's, and exactly the ground-truth boxes kept."""
+    import torch
+
+    from yolox_tpu_torch.evaluators import CocoEvaluator
+    from yolox_tpu_torch.ops.nms_kernel import nms_keep
+
+    images = eval_images()
+    gt = oracle_boxes(rng, images)
+    coco_json(Path(root) / "annotations" / "instances_val2017.json",
+              images, gt)
+    ecfg = eval_config(cfg, root, images, cfg.test_conf)
+    anchors = 4 * ORACLE_DUPS + 8
+    out = {}
+    for max_det in (1024, 2048):
+        res = {}
+        for dev in (CARD, "cpu"):
+            loader = ecfg.get_eval_loader(EVAL_B)
+            model = OracleModel(loader.dataset, torch.device(dev), anchors)
+            ev = CocoEvaluator(IdsLoader(loader, model), ecfg.test_size,
+                               ecfg.test_conf, ecfg.nmsthre, 80,
+                               max_det=max_det)
+            nms_keep.launches = 0
+            (ap, ap50, _), dets = ev.evaluate(model, return_outputs=True)
+            res[dev] = (ev.stats, dets, nms_keep.launches)
+        (stats, dets, launches), (cstats, cdets, _) = res[CARD], res["cpu"]
+        if launches != -(-EVAL_N // EVAL_B):
+            raise AssertionError(f"the oracle run launched K2 {launches} "
+                                 "times")
+        if not stats[1] > 0.99 or not np.array_equal(stats, cstats):
+            raise AssertionError(f"oracle at max_det {max_det}: card stats "
+                                 f"{stats.tolist()}, CPU {cstats.tolist()}")
+        for img_id, g in enumerate(gt):
+            d, c = dets[img_id], cdets[img_id]
+            if d != c or len(d["scores"]) != len(g) \
+                    or min(d["scores"]) < 0.98:
+                raise AssertionError(f"oracle image {img_id}: kept "
+                                     f"{len(d['scores'])} of {len(g)} boxes")
+        out[f"max_det_{max_det}"] = {"AP50": float(stats[1]),
+                                     "AP": float(stats[0])}
+        log(f"oracle evaluation at max_det {max_det}: {EVAL_N} images, "
+            f"{sum(len(g) for g in gt)} boxes under {ORACLE_DUPS} duplicates"
+            f" each, card = CPU, stats {np.round(stats, 4).tolist()}")
+    return out
+
+
+def phase_eval_model(cfg, root):
+    """yolox-s at 640 px, full width and depth, through `get_evaluator` /
+    `eval` on the card in float32 and bf16 against the CPU, on 64 images
+    whose ground truth is the CPU float32 run's own detections; launch
+    counts read around each card run. Returns (results, the card's
+    float32 and bf16 modules, the evaluation config, the set's images and
+    ground truth)."""
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.ops.nms import postprocess_device
+    from yolox_tpu_torch.ops.nms_kernel import nms_keep
+    from yolox_tpu_torch.ops.preproc import preproc
+    from yolox_tpu_torch.ops.stem import stem_conv_bn_act
+
+    cpu_mod = spread_scores(
+        YoloxModule.from_config(cfg, rng_seed=4321, device="cpu"),
+        np.random.default_rng(7).integers(0, 256, (2, 640, 640, 3),
+                                          dtype=np.uint8))
+    images = eval_images()
+    x = np.stack([preproc(im, cfg.test_size)[0] for im in images])
+    outs = [cpu_mod(x[i:i + EVAL_B]) for i in range(0, EVAL_N, EVAL_B)]
+    scores = torch.cat([o[..., 4] * o[..., 5:].amax(-1) for o in outs]).numpy()
+    # a gap between the top 1% and 0.1% of the scores (yolox-s: ~10
+    # candidates an image above it); the devices' scores agree to ~1e-5
+    # relative, so a gap of 2e-4 keeps the same candidates on both
+    conf, gap = gap_threshold(scores, float(np.quantile(scores, 0.99)),
+                              float(np.quantile(scores, 0.999)))
+    if gap < 2e-4:
+        raise AssertionError("no score gap wide enough to compare devices")
+    gt = []
+    for out in outs:
+        dets, valid = postprocess_device(out, 80, conf, cfg.nmsthre, False,
+                                         1024)
+        gt += [d[v][:, [0, 1, 2, 3, 6]].numpy().astype(np.float64)
+               for d, v in zip(dets, valid)]
+    gt = [np.clip(g, 0, None) for g in gt]
+    coco_json(Path(root) / "annotations" / "instances_val2017.json",
+              images, gt)
+    ecfg = eval_config(cfg, root, images, conf)
+    log(f"evaluation set: {EVAL_N} images, {sum(len(g) for g in gt)} boxes "
+        f"(the CPU's detections at conf {conf:.5f}, gap {gap:.2g})")
+
+    gpu_mod = YoloxModule.from_config(cfg, rng_seed=4321, device=CARD)
+    gpu_mod.load_params(cpu_mod.state_dict())
+    cstats, crows, cev, _ = run_evaluation(ecfg, cpu_mod)
+    torch.cuda.synchronize()
+    stem_conv_bn_act.launches = nms_keep.launches = 0
+    stats, rows, ev, _ = run_evaluation(ecfg, gpu_mod)
+    launches = {"stem": stem_conv_bn_act.launches, "nms": nms_keep.launches}
+    batches = -(-EVAL_N // EVAL_B)
+    log(f"evaluation main path: {batches} batches, launches {launches}, "
+        f"COCO matching {ev.matcher} (CPU run: {cev.matcher})")
+    if launches != {"stem": batches, "nms": batches}:
+        raise AssertionError("evaluation did not run through K1 and K2 "
+                             "once per batch")
+    if set(rows) != set(crows):
+        raise AssertionError("the card and the CPU found detections in "
+                             "different images")
+    for img_id, want in crows.items():
+        got = rows[img_id]
+        if got.shape != want.shape:
+            raise AssertionError(f"image {img_id}: {len(got)} detections on "
+                                 f"the card, {len(want)} on the CPU")
+        n = len(want)
+        assert_dets_match(got[None], np.ones((1, n), bool), want[None],
+                          np.ones((1, n), bool))
+    if not np.allclose(stats, cstats, rtol=0, atol=EVAL_F32_STAT_TOL):
+        raise AssertionError(f"float32 stats {stats.tolist()} against the "
+                             f"CPU's {cstats.tolist()}")
+    log(f"float32 evaluation matches the CPU: {sum(map(len, rows.values()))}"
+        f" detections, stats {np.round(stats, 4).tolist()}")
+
+    bf_gpu = YoloxModule.from_config(cfg, rng_seed=4321, device=CARD,
+                                     dtype=torch.bfloat16)
+    bf_gpu.load_params(cpu_mod.state_dict())
+    bf_cpu = YoloxModule.from_config(cfg, rng_seed=4321, device="cpu",
+                                     dtype=torch.bfloat16)
+    bf_cpu.load_params(cpu_mod.state_dict())
+    torch.cuda.synchronize()
+    stem_conv_bn_act.launches = nms_keep.launches = 0
+    bstats, brows, _, _ = run_evaluation(ecfg, bf_gpu, half=True)
+    launches_bf16 = {"stem": stem_conv_bn_act.launches,
+                     "nms": nms_keep.launches}
+    log(f"bf16 evaluation: launches {launches_bf16}")
+    if launches_bf16 != {"stem": batches, "nms": batches}:
+        raise AssertionError("bf16 evaluation did not run through K1 and "
+                             "K2 once per batch")
+    bcstats, bcrows, _, _ = run_evaluation(ecfg, bf_cpu, half=True)
+    frac = bf16_match_fraction(brows, bcrows)
+    n_card = sum(map(len, brows.values()))
+    n_cpu = sum(map(len, bcrows.values()))
+    log(f"bf16 evaluation: {frac:.4f} of the CPU's {n_cpu} detections "
+        f"matched by the card's {n_card}; stats card "
+        f"{np.round(bstats, 4).tolist()}, CPU {np.round(bcstats, 4).tolist()}")
+    if frac < EVAL_BF16_MATCH or abs(n_card - n_cpu) > 0.05 * n_cpu \
+            or not np.allclose(bstats, bcstats, rtol=0,
+                               atol=EVAL_BF16_STAT_TOL):
+        raise AssertionError("bf16 evaluation on the card disagrees with "
+                             "the CPU's beyond the stated tolerances")
+    del bf_cpu, cpu_mod
+    return ({"launches": launches, "launches_bf16": launches_bf16,
+             "matcher": ev.matcher,
+             "f32_stats": stats.tolist(), "bf16_stats": bstats.tolist(),
+             "bf16_match": frac}, gpu_mod, bf_gpu, ecfg, images, gt)
+
+
+def eval_breakdown(module, ecfg, half):
+    """Device ms of one batch of 32 by stage: the forward, top-k and
+    gather (the postprocess without K2) and K2 from torch.profiler; the
+    host batch's copy to the card and the detections' copy back by CUDA
+    events."""
+    import torch
+
+    from yolox_tpu_torch.evaluators.coco_evaluator import device_inference
+    from yolox_tpu_torch.ops.nms import postprocess_device
+
+    imgs = next(iter(ecfg.get_eval_loader(EVAL_B)))[0]
+    xin = torch.as_tensor(imgs).cuda()
+    if half:
+        xin = xin.to(torch.bfloat16)
+    out = module(xin).float()
+    dets, valid = device_inference(module, imgs, half, 80, ecfg.test_conf,
+                                   ecfg.nmsthre, 1024)
+    parts = {"forward": device_time(lambda: module(xin))[0]}
+    post_ms, post = device_time(lambda: postprocess_device(
+        out, 80, ecfg.test_conf, ecfg.nmsthre, False, 1024))
+    k2 = sum(t for k, t in post if "nms_kernel" in k)
+    parts["topk_gather"] = post_ms - k2
+    parts["k2"] = k2
+    # the copies by CUDA events (the profiler gave a lone copy no device
+    # time); pageable, so each ends on the host
+    parts["copy_in_events"] = cuda_ms(lambda: torch.as_tensor(imgs).cuda(),
+                                      3, warmup=1)
+    parts["copy_out_events"] = cuda_ms(lambda: (dets.cpu(), valid.cpu()), 10)
+    return parts
+
+
+def eval_times(gpu_mod, bf_gpu, ecfg, images, gt, root):
+    """Evaluation at `test_conf` 0.01 (the config's) and batch 32, float32
+    and bf16: images/s = images over the wall time of one `eval` of the
+    set repeated `EVAL_WINDOW` times (host letterbox, conversion and
+    COCOeval included; the second of two runs), device ms a batch
+    (`device_time` of `device_inference`) and its breakdown by stage."""
+    from yolox_tpu_torch.evaluators.coco_evaluator import device_inference
+
+    coco_json(Path(root) / "annotations" / "instances_val2017.json",
+              images * EVAL_WINDOW, gt * EVAL_WINDOW)
+    ecfg = eval_config(ecfg, root, images * EVAL_WINDOW, 0.01)
+    n_window = EVAL_N * EVAL_WINDOW
+    out = {}
+    for name, mod, half in (("float32", gpu_mod, False),
+                            ("bfloat16", bf_gpu, True)):
+        for _ in range(2):
+            _, _, ev, wall = run_evaluation(ecfg, mod, half, outputs=False)
+        imgs = next(iter(ecfg.get_eval_loader(EVAL_B)))[0]
+
+        def batch():
+            dets, valid = device_inference(mod, imgs, half, 80, 0.01,
+                                           ecfg.nmsthre, 1024)
+            dets.cpu(), valid.cpu()
+
+        dev_ms, top = device_time(batch)
+        out[name] = {"img_per_s": n_window / wall, "wall_s": wall,
+                     "images": n_window,
+                     "device_ms_per_batch": dev_ms,
+                     "stats": ev.stats.tolist(),
+                     "breakdown_ms": eval_breakdown(mod, ecfg, half),
+                     "top_kernels": [(k[:60], round(v, 4))
+                                     for k, v in top[:6]]}
+        log(f"evaluation {name} B {EVAL_B} at conf 0.01: {out[name]}")
+    return out
+
+
+def run_eval(cfg, rng, lines):
+    """Phase 9: evaluation on the card."""
+    import tempfile
+
+    phase_nms_any_k(rng)
+    with tempfile.TemporaryDirectory() as root:
+        oracle = phase_oracle(cfg, rng, str(Path(root) / "oracle"))
+        res, gpu_mod, bf_gpu, ecfg, images, gt = phase_eval_model(
+            cfg, str(Path(root) / "model"))
+        times = eval_times(gpu_mod, bf_gpu, ecfg, images, gt,
+                           str(Path(root) / "window"))
+    lines.append({"eval": {**res, "oracle": oracle, "times": times}})
+    return res["launches"], res["launches_bf16"]
+
+
 def run_serve(cfg, rng, lines):
     """Phases 2-5; returns the kernels-line entries of K1 and K2."""
     import torch
@@ -1731,21 +2271,25 @@ def run_serve(cfg, rng, lines):
     lines.append({"serve": times["serve"]})
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms")
+    # a case's inputs beside its times (K2's walk floor and per-box time
+    # stay on its log line)
+    case_keys = keys + ("B", "K", "valid", "walked")
     kernels = []
-    for name, source, replaces, n, err, t, unit in (
+    for name, source, replaces, n, err, t, head, unit in (
             ("stem_conv_bn_act", "yolox_tpu_torch/csrc/stem.cu",
              "yolox_tpu/ops/pallas_stem.py:89", launches["stem"], stem_err,
-             times["stem"], "one call at B 1, 640 px, uint8 in, float32 "
-             "out"),
+             times["stem"], "b1", "one call at B 1, 640 px, uint8 in, "
+             "float32 out"),
             ("nms_keep", "yolox_tpu_torch/csrc/nms.cu",
              "yolox_tpu/ops/pallas_nms.py:31", launches["nms"], 0.0,
-             times["nms"], "one call at B 1, 640 px")):
+             times["nms"], "serve_b1", "one call at B 1, 640 px, "
+             "serving's candidates")):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n, "max_abs_err": err,
-            **{k: t["b1"][k] for k in keys}, "unit": unit,
-            **{case: {k: t[case][k] for k in keys}
-               for case in t if case != "b1"},
+            **{k: t[head][k] for k in keys}, "unit": unit,
+            **{case: {k: v for k, v in t[case].items() if k in case_keys}
+               for case in t if case != head},
         })
     return kernels
 
@@ -1838,6 +2382,10 @@ def main() -> int:
     cfg = YoloxConfig.get_named_config("yolox_s")
     lines = []
     kernels = run_serve(cfg, rng, lines)
+    eval_launches, eval_launches_bf16 = run_eval(cfg, rng, lines)
+    for entry, key in ((kernels[0], "stem"), (kernels[1], "nms")):
+        entry["launches_eval"] = eval_launches[key]
+        entry["launches_eval_bf16"] = eval_launches_bf16[key]
     module = YoloxModule.from_config(cfg, rng_seed=4321)
     shapes = kernel_conv_shapes(module)
     log(f"{len(shapes)} 1x1 SiLU convs of yolox-s take K3 / K4: "

@@ -8,7 +8,7 @@ JAX, so on a machine without it run them past the suite's conftest:
 Tolerances: K1 float32 at 1e-4 + 1e-6 |ref| (108-term sums reassociated),
 bf16 within one bf16 ulp, plus for the tensor-core path (uint8 and bf16
 images) 2^-19 of |scale| sum |x w| (`chip_smoke.stem_limit`: the tensor
-core truncates the sums it forms); K2 bit-equal keep masks; K3 and K4 as
+core truncates the sums it forms); K2 bit-equal keep masks at any K; K3 and K4 as
 `chip_smoke.check_conv_bwd` states them (relative to each output's sum
 of |terms|); K5, fused and single-pass, bit-equal to its plain versions; the card's
 augmentation
@@ -108,19 +108,50 @@ def test_stem_kernel_bf16_weights(cuda, in_dtype, c):
     _check_stem(x, wb.bfloat16().float(), scale, bias, "silu")
 
 
-@pytest.mark.parametrize("k", [1, 37, 128, 1000, 1024])
-def test_nms_kernel_matches_plain(cuda, k):
+@pytest.mark.parametrize("k,b", [(1, 4), (37, 4), (128, 4), (1000, 4),
+                                 (1024, 4), (1024, 64), (1025, 16),
+                                 (2048, 8), (4096, 4), (8400, 2)])
+def test_nms_kernel_matches_plain(cuda, k, b):
+    """Any K: past 1024 the mask leaves shared memory (pass A writes it to
+    global memory, pass B stages it through the shared ring)."""
     from yolox_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
 
     rng = np.random.default_rng(k)
-    boxes = torch.from_numpy(random_boxes(rng, 4, k)).to(cuda)
-    scattered = torch.from_numpy(rng.random((4, k)) > 0.2).to(cuda)
-    prefix = torch.arange(k, device=cuda)[None] < torch.tensor(
-        [[0], [1], [k // 2], [k]], device=cuda)
+    boxes = torch.from_numpy(random_boxes(rng, b, k)).to(cuda)
+    scattered = torch.from_numpy(rng.random((b, k)) > 0.2).to(cuda)
+    cut = np.resize(np.array([0, 1, k // 2, k]), (b, 1))
+    prefix = torch.arange(k, device=cuda)[None] < torch.from_numpy(cut).to(
+        cuda)
     for valid in (scattered, prefix):
         for thr in (0.3, 0.65):
             got = nms_keep(boxes, valid, thr)
             assert torch.equal(got, nms_keep_plain(boxes, valid, thr))
+
+
+@pytest.mark.parametrize("k,rows,group", [
+    (1025, 1, None), (1025, 8, 4), (1025, 32, 2), (8400, 16, 4),
+    (8400, 1, 1), (1024, None, 2), (2048, None, 4), (1300, 2, 2)])
+def test_nms_kernel_forced_ring_sizes(cuda, k, rows, group):
+    """The smaller rings that large K gets and each number G of row tiles
+    a block, forced at sizes the plain version can check."""
+    from yolox_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+
+    rng = np.random.default_rng(k + (rows or 0))
+    boxes = torch.from_numpy(random_boxes(rng, 2, k)).to(cuda)
+    valid = torch.from_numpy(rng.random((2, k)) > 0.1).to(cuda)
+    assert torch.equal(nms_keep(boxes, valid, 0.5, rows, group),
+                       nms_keep_plain(boxes, valid, 0.5))
+
+
+def test_nms_kernel_is_deterministic(cuda):
+    from yolox_tpu_torch.ops.nms_kernel import nms_keep
+
+    rng = np.random.default_rng(5)
+    boxes = torch.from_numpy(random_boxes(rng, 32, 1024)).to(cuda)
+    valid = torch.ones((32, 1024), dtype=torch.bool, device=cuda)
+    first = nms_keep(boxes, valid, 0.65)
+    for _ in range(5):
+        assert torch.equal(nms_keep(boxes, valid, 0.65), first)
 
 
 def test_nms_kernel_edge_cases(cuda):
@@ -137,9 +168,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     from yolox_tpu_torch.ops.stem import stem_conv_bn_act
 
     boxes = torch.zeros((1, 1025, 4), device=cuda)
-    with pytest.raises(ValueError, match="K = 1025"):
-        nms_keep(boxes, torch.ones((1, 1025), dtype=torch.bool,
-                                   device=cuda), 0.5)
+    ones = torch.ones((1, 1025), dtype=torch.bool, device=cuda)
+    # K = 1025 is taken (the old kernel's 1024 limit is gone): all-zero
+    # boxes have IoU 0, so every valid box is kept
+    assert torch.equal(nms_keep(boxes, ones, 0.5), ones)
+    with pytest.raises(ValueError, match="contiguous"):
+        nms_keep(torch.zeros((1, 8, 8), device=cuda)[..., ::2], ones[:, :8],
+                 0.5)
     with pytest.raises(ValueError, match="float32"):
         nms_keep(boxes[:, :8].double(), torch.ones((1, 8), dtype=torch.bool,
                                                    device=cuda), 0.5)

@@ -14,6 +14,8 @@
 
 import ast
 import pathlib
+import shutil
+import urllib.request
 
 import jax.numpy as jnp
 import numpy as np
@@ -175,11 +177,13 @@ def test_pth_round_trip_strict(tmp_path, monkeypatch, small_model):
 
     jflat = nested_to_flat(load_pth_params(path))
     assert set(jflat) == set(module.state_dict())
-    # a named model comes from $YOLOX_HOME/weights, never from the network
+    # a named model comes from $YOLOX_HOME/weights; offline, the fetch of
+    # a missing file fails and raises
     monkeypatch.setenv("YOLOX_HOME", str(tmp_path))
+    monkeypatch.setattr(urllib.request, "urlretrieve", _offline)
     with pytest.raises(RuntimeError, match="none cached at"):
         YoloxModule.from_pretrained("yolox_nano", device="cpu")
-    (tmp_path / "weights").mkdir()
+    (tmp_path / "weights").mkdir(exist_ok=True)
     save_pth_state_dict(module.state_dict(), tmp_path / "weights" /
                         "yolox_nano.pth")
     model = Yolox.from_pretrained("yolox_nano", device="cpu")
@@ -191,6 +195,58 @@ def test_pth_round_trip_strict(tmp_path, monkeypatch, small_model):
         loaded.load_params(bad)
     with pytest.raises(ValueError, match="Unknown model"):
         YoloxModule.from_pretrained("yolox_q", device="cpu")
+
+
+def _offline(url, filename):
+    raise OSError(f"no network for {url}")
+
+
+def test_from_pretrained_fetches_through_tmp_and_rename(tmp_path,
+                                                        monkeypatch,
+                                                        small_model):
+    """A missing named checkpoint is fetched from the upstream release into
+    `<file>.tmp` and renamed into place, then loads strict=True, as in the
+    JAX package (`yolox_tpu/models/yolox.py::_cached_pretrained_weights`);
+    the fetch is a copy of a local .pth here."""
+    module = small_model.module
+    src = tmp_path / "served.pth"
+    save_pth_state_dict(module.state_dict(), src)
+    fetched = []
+
+    def fetch(url, filename):
+        fetched.append((url, filename))
+        shutil.copyfile(src, filename)
+
+    home = tmp_path / "home"
+    monkeypatch.setenv("YOLOX_HOME", str(home))
+    monkeypatch.setattr(urllib.request, "urlretrieve", fetch)
+    model = Yolox.from_pretrained("yolox_nano", device="cpu")
+    target = home / "weights" / "yolox_nano.pth"
+    assert fetched == [(
+        "https://github.com/Megvii-BaseDetection/YOLOX/releases/download/"
+        "0.1.1rc0/yolox_nano.pth", f"{target}.tmp")]
+    assert target.exists() and not pathlib.Path(f"{target}.tmp").exists()
+    for k, v in module.state_dict().items():
+        assert torch.equal(model.module.state_dict()[k], v), k
+    # cached now: a second load does not fetch
+    Yolox.from_pretrained("yolox_nano", device="cpu")
+    assert len(fetched) == 1
+
+
+def test_failed_fetch_raises_the_jax_message(tmp_path, monkeypatch):
+    import yolox_tpu.models.yolox as jyolox
+
+    monkeypatch.setenv("YOLOX_HOME", str(tmp_path))
+    monkeypatch.setattr(jyolox, "HOME", tmp_path)
+    monkeypatch.setattr(urllib.request, "urlretrieve", _offline)
+    messages = []
+    for cls in (YoloxModule, jyolox.YoloxModule):
+        with pytest.raises(RuntimeError) as err:
+            cls._cached_pretrained_weights("yolov3")
+        assert isinstance(err.value.__cause__, OSError)
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
+    assert "yolox_darknet.pth" in messages[0]
 
 
 def test_no_device_and_no_gpu_raises(monkeypatch):

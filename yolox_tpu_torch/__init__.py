@@ -14,6 +14,8 @@ kernels (`yolox_tpu_torch/csrc/`), built with nvcc on first use. Training
 backward of the 1x1 convs as two more such kernels, and the on-device
 Mosaic/MixUp augmentation (`yolox_tpu_torch.data.device_augment_batch`,
 `core.make_augmented_train_step`) runs its shear passes as a fifth.
+Evaluation (`YoloxConfig.get_evaluator` / `YoloxConfig.eval`,
+`yolox_tpu_torch.evaluators`) runs COCO and VOC on the module's device.
 """
 
 from yolox_tpu_torch.version import __version__

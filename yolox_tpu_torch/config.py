@@ -2,9 +2,10 @@
 
 The same field table, defaults and `-D key=value` coercion as the JAX
 package's `yolox_tpu/config.py`, so configs and overrides carry over
-unchanged. The port builds the model, the optimizer and the LR scheduler;
-the dataset, loader, trainer and evaluator factories raise
-`NotImplementedError` until their modules are ported.
+unchanged. The port builds the model, the optimizer, the LR scheduler and
+the evaluation dataset, loader and evaluator; the training dataset,
+loader and trainer factories raise `NotImplementedError` until their
+modules are ported.
 
 Fields that tune the JAX package's TPU layouts (`lane_fold*`,
 `serve_lane_fold`, `serve_stem_s2d*`, `train_stem_s2d`, `remat`) are kept
@@ -184,21 +185,55 @@ class YoloxConfig:
         )
 
     def get_eval_dataset(self, **kwargs):
-        _later("the evaluation dataset")
+        from yolox_tpu_torch.data import CocoDataset, ValTransform
+
+        testdev = kwargs.get("testdev", False)
+        legacy = kwargs.get("legacy", False)
+        return CocoDataset(
+            data_dir=self.data_dir,
+            json_file=self.val_ann if not testdev else self.test_ann,
+            name="val2017" if not testdev else "test2017",
+            img_size=self.test_size,
+            preproc=ValTransform(legacy=legacy),
+        )
 
     def get_eval_loader(self, batch_size, is_distributed=False, **kwargs):
-        _later("the evaluation loader")
+        """Sequential batches of `get_eval_dataset` (torch's DataLoader
+        with `data_num_workers` workers). Splitting them over processes
+        comes with torch.distributed in the trainer (ROADMAP M7)."""
+        from yolox_tpu_torch.data import eval_loader
+        from yolox_tpu_torch.evaluators.coco_evaluator import (
+            require_one_process,
+        )
+
+        if is_distributed:
+            require_one_process("the evaluation loader")
+        return eval_loader(self.get_eval_dataset(**kwargs), batch_size,
+                           num_workers=self.data_num_workers)
 
     def get_evaluator(self, batch_size, is_distributed=False, testdev=False,
                       legacy=False):
-        _later("the COCO evaluator")
+        from yolox_tpu_torch.evaluators import CocoEvaluator
+
+        return CocoEvaluator(
+            dataloader=self.get_eval_loader(
+                batch_size, is_distributed, testdev=testdev, legacy=legacy),
+            img_size=self.test_size,
+            confthre=self.test_conf,
+            nmsthre=self.nmsthre,
+            num_classes=self.num_classes,
+            testdev=testdev,
+        )
 
     def get_trainer(self, args):
         _later("the trainer")
 
     def eval(self, model, evaluator, is_distributed=False, half=False,
              return_outputs=False):
-        _later("evaluation")
+        """`evaluator.evaluate(model, ...)`: (AP50:95, AP50, summary) for
+        a `YoloxModule` on its device."""
+        return evaluator.evaluate(
+            model, is_distributed, half, return_outputs=return_outputs)
 
 
 def validate_config(config: YoloxConfig):

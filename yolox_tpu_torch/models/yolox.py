@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import itertools
 import os
+import urllib.request
 from pathlib import Path
 from typing import Iterable, List, Optional
 
@@ -295,16 +296,24 @@ class YoloxModule(nn.Module):
 
     @classmethod
     def _cached_pretrained_weights(cls, model_id: str) -> str:
-        """The upstream checkpoint under `$YOLOX_HOME/weights/`. The port
-        never downloads: a missing file raises with the JAX package's
-        message."""
+        """The upstream checkpoint under `$YOLOX_HOME/weights/`, fetched
+        from the upstream release into `<file>.tmp` and renamed into place
+        when it is missing, as the JAX package does; a failed fetch raises
+        with the JAX package's message."""
+        weights_dir = yolox_home() / "weights"
+        weights_dir.mkdir(exist_ok=True, parents=True)
         file_id = _WEIGHTS_ALIAS.get(model_id, model_id)
-        weights_file = yolox_home() / "weights" / f"{file_id}.pth"
+        weights_file = weights_dir / f"{file_id}.pth"
         if not weights_file.exists():
             weights_url = _WEIGHTS_URL.format(model_id=file_id)
-            raise RuntimeError(
-                f"Could not download pretrained weights for {model_id!r} "
-                f"from {weights_url} and none cached at {weights_file}. "
-                "In offline environments, place the upstream .pth there "
-                "manually.")
+            try:
+                urllib.request.urlretrieve(weights_url, f"{weights_file}.tmp")
+            except Exception as e:
+                raise RuntimeError(
+                    f"Could not download pretrained weights for {model_id!r} "
+                    f"from {weights_url} and none cached at {weights_file}. "
+                    "In offline environments, place the upstream .pth there "
+                    "manually."
+                ) from e
+            os.rename(f"{weights_file}.tmp", weights_file)
         return str(weights_file)

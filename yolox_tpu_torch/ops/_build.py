@@ -37,14 +37,15 @@ KERNELS = ("stem", "nms", "conv_bwd", "warp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
 # launcher name -> argument types, per library; every launcher returns a
 # cudaError_t as int. Pointers and the stream are c_void_p: a plain int
 # would be cut to 32 bits.
 SIGNATURES = {
     "stem": {"yolox_stem_conv_bn_act": [_P, _I, _P, _P, _P, _P, _I, _I, _I,
                                         _I, _I, _I, _P]},
-    "nms": {"yolox_nms_keep": [_P, _P, _P, _I, _I, _F, _P]},
+    # K2: one packed argument struct (`nms_kernel._ARGS`)
+    "nms": {"yolox_nms_keep": [ctypes.c_char_p, _P]},
     # K3 / K4: one packed argument struct (`conv_bwd._K3_ARGS`, `_K4_ARGS`)
     "conv_bwd": {"yolox_bn_silu_reduce": [ctypes.c_char_p, _P],
                  "yolox_conv1x1_bn_silu_bwd": [ctypes.c_char_p, _P]},
