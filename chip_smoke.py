@@ -18,8 +18,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    negative-extent boxes, IoU exactly at the threshold, all-invalid rows,
    K 128);
 4. the serving path of yolox-s at full width and 640 px: `Yolox.__call__`
-   on 1, 3 and 8 uint8 frames and `Yolox.stream` over 10 frames, with the
-   kernels' launch counters read around that run; the results against the
+   on 1, 3 and 8 uint8 640 x 640 frames and on a 1280 x 720 and a 500 x
+   375 frame (letterbox ratios 0.5 and 1.28: their resize runs
+   `data/cv2_compat.py`, whose route is printed), and `Yolox.stream` over
+   10 frames, with the kernels' launch counters read around that run; the results against the
    same model on the CPU (plain versions); `YoloxModule.serve` and
    `YoloxModule.__call__` against the committed goldens
    `tests/golden/s_serve_seed4321.npz` and `s_seed4321.npz`;
@@ -33,8 +35,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    (B 1) and throughput (B 32) in float32 and bfloat16;
 6. K3 and K4, the fused Conv-BN-SiLU backward kernels, against their plain
    versions at all 43 1x1 SiLU conv shapes of yolox-s (B 16, 640 px) and
-   at the distinct shapes of 480 and 800 px multiscale steps (HW 225,
-   900, 625, 2500: no 16-byte loads), float32 and bf16, on random x and
+   at the distinct shapes of every other size phase 10's multiscale can
+   draw (480-800 px in steps of 32; HW such as 225, 625, 900 take no
+   16-byte loads), float32 and bf16, on random x and
    g_y with the BN statistics of the conv's own forward (tolerances:
    `K3_TOL`, `K4_*_TOL`), K3's coefficient table against the torch
    expressions on its sums;
@@ -83,8 +86,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    images) and device ms a batch at B 32 in float32 and bf16 with a
    breakdown by stage (`eval_times`).
 
-Then JSON lines with the serve, evaluation, training and augmentation
-times and the kernels, the `nvidia-smi` name and power limit, and as the last line
+10. (run last) the trainer: `YoloxConfig.get_trainer(args).train()` on
+   yolox-s at full width and depth, 640 px, B 16, bf16 (`fp16`),
+   `fused_conv_bwd`, 160 in-memory images of mixed shapes (1-10 boxes
+   each), 32 evaluation images, `max_epoch` 2, `no_aug_epochs` 0 (the
+   mosaic closes at epoch index max_epoch - no_aug_epochs - 1, so epoch 1
+   runs Mosaic/MixUp and epoch 2 letterboxes with L1), warm-up 1 epoch,
+   evaluation every epoch, multiscale range 5, `min(8, cpu_count)` loader
+   workers (`run_trainer`): (a) the host Mosaic/MixUp path from seeded
+   starting weights, then the same run resumed from the checkpoint of its
+   first epoch; (b) `device_augment` (tiles in, K5 on the card), then the
+   no-aug epoch. Checked: finite losses, the LR of every iteration on
+   `LRScheduler.update_lr`, the launch counters read around every
+   iteration (K3 and K4 43 times, K5 once in a device-augmented epoch,
+   else never) and evaluation (K1 and K2 once a batch), the checkpoint
+   files (latest, last_mosaic_epoch, best), the resume's start epoch and
+   EMA count and its epoch against (a)'s second (LR, mosaic closed, L1
+   on), `best_ckpt.pth` loaded strict on the card and the CPU with equal
+   float32 detections, `data/cv2_compat.py`'s numpy versions against
+   this host's cv2 (`cv2_compat_vs_host`); timed: images/s by epoch,
+   median iteration and loader-wait ms, the busy share of 3 profiled
+   iterations, peak memory, the Mosaic loader alone on each route.
+
+Then JSON lines with the serve, evaluation, training, augmentation and
+trainer times and the kernels, the `nvidia-smi` name and power limit, and as the last line
 `{"ok": true, "device": {...}}`.
 
 TF32 is turned off here (cuDNN and matmul) before any comparison with
@@ -95,6 +120,7 @@ the CPU tests use them too.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -338,11 +364,17 @@ def conv_bwd_case(seed, b, ci, co, h, w, dtype, device):
     import torch
 
     rng = np.random.default_rng(seed)
+    # the activations are drawn on `device`: at the largest multiscale
+    # shapes host draws would take longer than the checks
+    gen = torch.Generator(device).manual_seed(seed)
 
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(device)
 
-    x = t(rng.standard_normal((b, ci, h, w))).to(dtype)
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    x = normal(b, ci, h, w)
     wt = t(rng.uniform(-1, 1, (co, ci)) / np.sqrt(ci)).to(dtype)
     # contiguous, as the conv's forward leaves it (einsum may not)
     z = torch.einsum("oi,bihw->bohw", wt.float(), x.float()).to(
@@ -353,7 +385,7 @@ def conv_bwd_case(seed, b, ci, co, h, w, dtype, device):
     return {"x": x, "w": wt, "z": z, "mean": mean, "inv": inv,
             "gamma": t(1.0 + 0.3 * rng.standard_normal(co)),
             "beta": t(0.1 * rng.standard_normal(co)),
-            "g_y": t(rng.standard_normal((b, co, h, w))).to(dtype)}
+            "g_y": normal(b, co, h, w)}
 
 
 # Tolerances of K3 / K4 against their plain versions, relative to the sum
@@ -669,6 +701,26 @@ def phase_nms(rng):
               torch.from_numpy(ev).cuda(), thr)
 
 
+# (h, w) of the serving frames whose letterbox ratio is not 1
+ODD_FRAMES = ((720, 1280), (375, 500))
+
+
+class hidden_cv2:
+    """Within the block `import cv2` fails in this process and in the
+    worker processes it forks, so `data/cv2_compat.py` runs its numpy
+    versions (the route of a host without cv2)."""
+
+    def __enter__(self):
+        self.saved = sys.modules.get("cv2", self)
+        sys.modules["cv2"] = None
+
+    def __exit__(self, *exc):
+        if self.saved is self:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = self.saved
+
+
 def _frames(rng, n):
     return [rng.integers(0, 256, (640, 640, 3), dtype=np.uint8)
             for _ in range(n)]
@@ -693,13 +745,20 @@ def phase_serve(cfg, rng):
     gpu_mod.load_params(cpu_mod.state_dict())
     gpu, cpu = (Yolox(m, YoloxProcessor(cfg)) for m in (gpu_mod, cpu_mod))
 
-    # 640 x 640 frames letterbox to themselves; each request's threshold
-    # sits in a gap of the CPU's scores, so both devices keep the same
-    # candidates (scores agree to ~1e-5 relative)
-    requests = [_frames(rng, n) for n in (1, 3, 8)]
+    # 640 x 640 frames letterbox to themselves; a 1280 x 720 and a 500 x
+    # 375 frame do not (ratios 0.5 and 1.28), so their letterbox resizes
+    # through `data/cv2_compat.py` (numpy on a host without cv2); each
+    # request's threshold sits in a gap of the CPU's scores, so both
+    # devices keep the same candidates (scores agree to ~1e-5 relative)
+    from yolox_tpu_torch.data import cv2_compat
+
+    odd = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+           for h, w in ODD_FRAMES]
+    requests = [_frames(rng, n) for n in (1, 3, 8)] + [odd]
     stream_in = _frames(rng, 10)
-    cuts = [gap_threshold(anchor_scores(cpu_mod, np.stack(f)), 0.25, 0.45)
-            for f in requests + [stream_in]]
+    log(f"letterbox resize route on this host: {cv2_compat.route()}")
+    cuts = [gap_threshold(anchor_scores(cpu_mod, cpu.processor(
+        f, dtype=np.uint8)), 0.25, 0.45) for f in requests + [stream_in]]
     log("score thresholds (relative gap): "
         + ", ".join(f"{t:.5f} ({g:.2g})" for t, g in cuts))
     if min(g for _, g in cuts) < 1e-3:
@@ -722,11 +781,17 @@ def phase_serve(cfg, rng):
     for frames, t, dets in zip(requests, thr, got):
         assert_detections_match(dets, cpu(frames, threshold=t))
         n_dets += sum(len(d["labels"]) for d in dets)
+    with hidden_cv2():
+        route = cv2_compat.route()
+        assert_detections_match(gpu(odd, threshold=thr[3]), got[3])
+    log(f"the {ODD_FRAMES} pair through cv2_compat's {route} route gives "
+        "the same detections on the card")
     assert_detections_match(got_stream, cpu(stream_in, threshold=thr[-1]))
     assert_detections_match(got_stream[:8],
                             gpu(stream_in[:8], threshold=thr[-1]))
-    log(f"Yolox.__call__ (1, 3, 8 frames) and stream (10 frames, batch 4) "
-        f"match the CPU: {n_dets} detections on the calls")
+    log(f"Yolox.__call__ (1, 3, 8 frames and the {ODD_FRAMES} pair) and "
+        f"stream (10 frames, batch 4) match the CPU: {n_dets} detections "
+        "on the calls")
 
     golden_mod = YoloxModule.from_config(cfg, rng_seed=4321)
     x = np.random.default_rng(98).uniform(0, 255, (2, 640, 640, 3)).astype(
@@ -952,9 +1017,10 @@ def _launch_counters():
 
 def phase_conv_bwd(shapes, multiscale):
     """K3 and K4 against their plain versions at every shape of a 640 px
-    step and at the distinct `multiscale` shapes (480 and 800 px steps,
-    whose HW is no multiple of 8), B 16, float32 and bf16. Returns the
-    float32 max abs errors {"k3", "k4"}."""
+    step and at the distinct `multiscale` shapes (those of every other
+    size `random_resize` draws, 480-800 px: HW 225, 625, 900 and others
+    are no multiple of 8), B 16, float32 and bf16. Returns the float32
+    max abs errors {"k3", "k4"}."""
     import torch
 
     errs, worst = {"k3": 0.0, "k4": 0.0}, {}
@@ -2357,6 +2423,530 @@ def run_augment(cfg, rng, n_kernel_convs, lines):
     }]
 
 
+# ------------------------------------------------------- the trainer (10)
+
+TRAINER_N = 160        # training images, in memory
+TRAINER_EVAL_N = 32    # evaluation images, longer side 640
+TRAINER_B = 16
+TRAINER_CHECK_N = 8    # best_ckpt.pth: card against CPU on this many
+# training image shapes (h, w): a longer side of 640 (no resize before
+# the mosaic) and larger (pull_item and the MixUp partner resize)
+TRAINER_SHAPES = ((640, 640), (480, 640), (720, 1280), (960, 720),
+                  (640, 427), (1024, 768), (512, 640), (900, 1600))
+# iterations of run (a) that torch.profiler traces (the trainer's own
+# YOLOX_PROFILE_* hook): the busy share
+TRAINER_PROFILE = (3, 3)
+TRAINER_MULTISCALE_RANGE = 5   # sizes 480-800 px
+
+
+def trainer_multiscale(cfg):
+    """A copy of `cfg` with phase 10's multiscale range."""
+    import copy
+
+    out = copy.copy(cfg)
+    out.multiscale_range, out.random_size = TRAINER_MULTISCALE_RANGE, None
+    return out
+
+
+def trainer_images(n, shapes, seed):
+    """n seeded BGR uint8 images cycling through `shapes`, and per image
+    1-10 boxes (x1, y1, x2, y2, class) inside it."""
+    rng = np.random.default_rng(seed)
+    images, boxes = [], []
+    for i in range(n):
+        h, w = shapes[i % len(shapes)]
+        images.append(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        k = int(rng.integers(1, 11))
+        bw = rng.uniform(16, w / 2, k)
+        bh = rng.uniform(16, h / 2, k)
+        x1 = rng.uniform(0, w - bw)
+        y1 = rng.uniform(0, h - bh)
+        boxes.append(np.stack([x1, y1, x1 + bw, y1 + bh,
+                               rng.integers(0, 80, k)], 1))
+    return images, boxes
+
+
+def anchor_start(module):
+    """Starting weights that detect their own anchors: seeded yolox-s
+    whose prediction biases say "class 0, box = the anchor cell" with the
+    objectness of the stride-32 level highest (logit 3, the others -1;
+    class 0 logit 2, the others -4; box offsets 0). At random init the
+    eval features barely move the logits, so the ranked detections are
+    the stride-32 anchor boxes; the weights stay as seeded, so training
+    runs as it would from any init."""
+    import torch
+
+    head = module.head
+    with torch.no_grad():
+        for level, (obj, cls, reg) in enumerate(zip(
+                head.obj_preds, head.cls_preds, head.reg_preds)):
+            obj.bias.fill_(3.0 if level == len(head.obj_preds) - 1 else -1.0)
+            cls.bias.fill_(-4.0)
+            cls.bias[0] = 2.0
+            reg.bias.zero_()
+    return module
+
+
+def anchor_boxes(images, size, stride=32):
+    """Per image the (n, 5) rows (x1, y1, x2, y2, class 0) of the
+    stride-`stride` anchor cells (`stride` squares centred on the grid
+    points, as an untrained head decodes them) that lie inside the
+    image's letterboxed area, in image coordinates."""
+    from yolox_tpu_torch.ops.preproc import letterbox_ratio
+
+    g = np.arange(1, size[0] // stride) * stride
+    cy, cx = np.meshgrid(g, g, indexing="ij")
+    cells = np.stack([cx - stride / 2, cy - stride / 2, cx + stride / 2,
+                      cy + stride / 2, np.zeros_like(cx)], -1).reshape(-1, 5)
+    out = []
+    for im in images:
+        r = letterbox_ratio(im.shape[:2], size)
+        inside = (cells[:, 2] <= im.shape[1] * r) & \
+            (cells[:, 3] <= im.shape[0] * r)
+        rows = cells[inside].astype(np.float64)
+        rows[:, :4] /= r
+        out.append(rows)
+    return out
+
+
+def trainer_config(cfg, root, train, evaluation, **fields):
+    """A copy of `cfg` whose training and evaluation sets are held in
+    memory (`load_image` returns the arrays; their annotations are JSON
+    files under `root`), with `fields` set."""
+    from yolox_tpu_torch.data import CocoDataset, TrainTransform, ValTransform
+
+    coco_json(Path(root) / "annotations" / "instances_train2017.json",
+              *train)
+    coco_json(Path(root) / "annotations" / "instances_val2017.json",
+              *evaluation)
+
+    def in_memory(images):
+        class InMemoryCoco(CocoDataset):
+            def load_image(self, index):
+                return images[self.ids[index]]
+
+        return InMemoryCoco
+
+    train_set, eval_set = in_memory(train[0]), in_memory(evaluation[0])
+
+    class TrainerConfig(type(cfg)):
+        def get_dataset(self, cache=False, cache_type="ram"):
+            return train_set(data_dir=root,
+                             json_file="instances_train2017.json",
+                             name="train2017", img_size=self.input_size,
+                             preproc=TrainTransform(
+                                 max_labels=50, flip_prob=self.flip_prob,
+                                 hsv_prob=self.hsv_prob))
+
+        def get_eval_dataset(self, **kwargs):
+            return eval_set(data_dir=root, json_file="instances_val2017.json",
+                            name="val2017", img_size=self.test_size,
+                            preproc=ValTransform())
+
+    out = TrainerConfig()
+    out.__dict__.update(cfg.__dict__)
+    out.data_dir, out.output_dir = root, str(Path(root) / "out")
+    out.dataset = None
+    for k, v in fields.items():
+        setattr(out, k, v)
+    return out
+
+
+def _card_sync():
+    import torch
+
+    if CARD != "cpu":
+        torch.cuda.synchronize()
+
+
+def instrument_trainer(trainer, counters):
+    """Wrap one trainer's hooks: per iteration its wall ms, loader wait,
+    lr and losses, the launch counters set to 0 just before it and read
+    just after; per evaluation the same counters; per epoch the wall time
+    of its iterations."""
+    rec = {"iters": [], "evals": [], "epochs": []}
+    one_iter, one_eval = trainer.train_one_iter, \
+        trainer.evaluate_and_save_model
+    in_iter, before = trainer.train_in_iter, trainer.before_train
+
+    def reset():
+        _card_sync()
+        for f in counters.values():
+            f.launches = 0
+
+    def read():
+        _card_sync()
+        return {k: f.launches for k, f in counters.items()}
+
+    def iteration():
+        reset()
+        t0 = time.perf_counter()
+        one_iter()
+        n = read()
+        rec["iters"].append({
+            "progress": trainer.progress_in_iter, "epoch": trainer.epoch,
+            "ms": 1e3 * (time.perf_counter() - t0),
+            "data_ms": 1e3 * trainer.meter["data_time"].latest,
+            "lr": trainer.meter["lr"].latest,
+            "loss": trainer.meter["total_loss"].latest,
+            "size": tuple(trainer._current_size),
+            "device_augment": trainer._device_augment,
+            "use_l1": trainer.use_l1,
+            "mosaic": trainer.train_loader.batch_sampler.mosaic,
+            "launches": n})
+
+    def evaluation():
+        reset()
+        one_eval()
+        rec["evals"].append({"epoch": trainer.epoch, "launches": read(),
+                             "best_ap": trainer.best_ap})
+
+    def epoch():
+        _card_sync()
+        t0 = time.perf_counter()
+        in_iter()
+        _card_sync()
+        rec["epochs"].append(time.perf_counter() - t0)
+
+    def before_train():
+        before()
+        rec["start_epoch"] = trainer.start_epoch
+        rec["ema_updates_at_start"] = trainer.train_state.ema.updates
+
+    trainer.train_one_iter, trainer.evaluate_and_save_model = iteration, \
+        evaluation
+    trainer.train_in_iter, trainer.before_train = epoch, before_train
+    return rec
+
+
+def check_trainer_run(name, trainer, rec, n_convs, aug_epochs):
+    """Finite losses, the LR schedule, and the launch counts of every
+    iteration (K3 / K4 `n_convs` times, K5 once in a device-augmented
+    epoch) and evaluation (K1 and K2 once a batch)."""
+    import math
+
+    sched = trainer.exp.get_lr_scheduler(
+        trainer.exp.basic_lr_per_img * TRAINER_B, trainer.max_iter)
+    for it in rec["iters"]:
+        if not math.isfinite(it["loss"]):
+            raise AssertionError(f"{name}: non-finite loss at {it}")
+        if it["lr"] != sched.update_lr(it["progress"] + 1):
+            raise AssertionError(f"{name}: lr {it['lr']} at iteration "
+                                 f"{it['progress']} off the schedule")
+        k5 = 1 if it["epoch"] in aug_epochs else 0
+        want = {"reduce_sums": n_convs, "main_1x1": n_convs, "stem": 0,
+                "nms": 0, "shear_x": 0, "shear_xy": k5}
+        if it["launches"] != want:
+            raise AssertionError(f"{name}: iteration {it['progress']} "
+                                 f"launched {it['launches']}, want {want}")
+    batches = -(-TRAINER_EVAL_N // TRAINER_B)
+    for ev in rec["evals"]:
+        want = {"reduce_sums": 0, "main_1x1": 0, "stem": batches,
+                "nms": batches, "shear_x": 0, "shear_xy": 0}
+        if ev["launches"] != want:
+            raise AssertionError(f"{name}: evaluation launched "
+                                 f"{ev['launches']}, want {want}")
+    sizes = sorted({it["size"] for it in rec["iters"]})
+    log(f"trainer {name}: {len(rec['iters'])} iterations, finite losses, "
+        f"lr on the schedule, launches per iteration K3/K4 {n_convs}, K5 "
+        f"in epochs {sorted(aug_epochs)}; {len(rec['evals'])} evaluations "
+        f"with K1/K2 {batches} each; sizes {sizes}; best AP "
+        f"{trainer.best_ap:.4f}")
+
+
+def check_resume(trainer, rec, run_a):
+    """The resume of run (a) from its first epoch's checkpoint: it starts
+    at epoch 1 with one epoch of EMA updates and runs (a)'s second epoch,
+    iteration for iteration at the same LR, with the mosaic closed, L1 on
+    and no device augmentation, as (a) did. (The multiscale sizes and the
+    sampler's stream start again from their seeds, as in the JAX
+    trainer.)"""
+    n = trainer.max_iter
+    if (rec["start_epoch"], rec["ema_updates_at_start"]) != (1, n) or \
+            len(rec["iters"]) != n:
+        raise AssertionError(
+            f"resume started at epoch {rec['start_epoch']} with "
+            f"{rec['ema_updates_at_start']} EMA updates and ran "
+            f"{len(rec['iters'])} iterations; want 1, {n}, {n}")
+    keys = ("progress", "epoch", "lr", "use_l1", "mosaic", "device_augment")
+    want = [{k: it[k] for k in keys} for it in run_a["iters"][n:]]
+    got = [{k: it[k] for k in keys} for it in rec["iters"]]
+    if got != want:
+        raise AssertionError(f"the resumed epoch differs from run (a)'s "
+                             f"second: {got} against {want}")
+    log(f"trainer a_resume: epoch 1 from epoch_1_ckpt.pth, {n} iterations "
+        f"at run (a)'s LR, mosaic closed and L1 on as in (a)")
+
+
+def trainer_times(rec, n_images):
+    """images/s over each epoch, median iteration and loader-wait ms (the
+    first iteration of a run and the profiled ones left out)."""
+    skip = set(range(TRAINER_PROFILE[0],
+                     TRAINER_PROFILE[0] + TRAINER_PROFILE[1]))
+    iters = [it for it in rec["iters"][1:] if it["progress"] not in skip]
+    return {"img_per_s_by_epoch": [n_images / t for t in rec["epochs"]],
+            "epoch_s": rec["epochs"],
+            "median_iter_ms": float(np.median([it["ms"] for it in iters])),
+            "median_loader_wait_ms": float(np.median(
+                [it["data_ms"] for it in iters])),
+            "mean_loader_wait_ms": float(np.mean(
+                [it["data_ms"] for it in iters])),
+            "iter_ms": [round(it["ms"], 2) for it in rec["iters"]],
+            "loader_wait_ms": [round(it["data_ms"], 2)
+                               for it in rec["iters"]]}
+
+
+def profiled_busy(trainer, median_iter_ms):
+    """Device ms an iteration from the trainer's torch.profiler window
+    (CUDA kernels and copies, summed) over the median iteration wall ms."""
+    import torch
+
+    per = {}
+    for e in trainer.profiler.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per[e.key] = per.get(e.key, 0.0) + e.self_device_time_total
+    dev_ms = sum(per.values()) / 1e3 / TRAINER_PROFILE[1]
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_ms_per_iter": dev_ms,
+            "busy": dev_ms / median_iter_ms,
+            "top_kernels_ms_per_iter": [
+                (k[:60], round(v / 1e3 / TRAINER_PROFILE[1], 3))
+                for k, v in top]}
+
+
+def loader_rates(tcfg, batches=6):
+    """The host Mosaic/MixUp loader alone, as run (a) builds it: images/s
+    over `batches` batches after the first, through this host's route
+    and through cv2_compat's numpy versions (cv2 hidden from the workers)."""
+    out = {}
+    for route in ("host", "numpy"):
+        with hidden_cv2() if route == "numpy" else contextlib.nullcontext():
+            loader = tcfg.get_data_loader(TRAINER_B)
+            batch_iter = iter(loader)
+            next(batch_iter)
+            t0 = time.perf_counter()
+            for _ in range(batches):
+                next(batch_iter)
+            out[route] = batches * TRAINER_B / (time.perf_counter() - t0)
+            loader.close()
+    log(f"host Mosaic/MixUp loader alone, {tcfg.data_num_workers} workers, "
+        f"img/s: {out}")
+    return out
+
+
+def cv2_compat_vs_host(seed=0):
+    """`data/cv2_compat.py`'s numpy versions against this host's cv2 on
+    seeded uint8 images: the letterbox resizes of the serving frames and
+    two Mosaic-sized ones, 4 Mosaic warps (`get_affine_matrix`'s draws,
+    1280 px canvas to 640, in the route of this cv2's major version), and
+    HSV both ways on a 640 px and an
+    odd-width image. Returns per op the largest difference in levels and
+    the share of values that differ, with cv2's version and CPU features;
+    fails past one level or a share of 1e-3 (the bound the CPU tests hold
+    the loader to)."""
+    import cv2
+
+    from yolox_tpu_torch.data import cv2_compat as cc
+    from yolox_tpu_torch.data.data_augment import get_affine_matrix
+
+    rng = np.random.default_rng(seed)
+    major = int(cv2.__version__.split(".")[0])
+    out = {"cv2": cv2.__version__,
+           "cpu_features": cv2.getCPUFeaturesLine()}
+
+    def image(h, w):
+        return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+    def diff(name, got, want):
+        d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+        prev = out.get(name, {"max": 0, "share": 0.0})
+        out[name] = {"max": max(prev["max"], int(d.max())),
+                     "share": max(prev["share"], float((d > 0).mean()))}
+
+    for (h, w), size in (((720, 1280), (640, 360)), ((375, 500), (640, 480)),
+                         ((1000, 1500), (640, 426)), ((427, 640), (512, 341))):
+        img = image(h, w)
+        diff("resize", cc.resize_linear_numpy(img, size),
+             cv2.resize(img, size, interpolation=cv2.INTER_LINEAR))
+    for _ in range(4):
+        img = image(1280, 1280)
+        m, _ = get_affine_matrix(rng, (640, 640), degrees=10.0,
+                                 translate=0.1, scales=(0.1, 2), shear=2.0)
+        diff("warp", cc.warp_affine_numpy(img, m, (640, 640),
+                                          cv2_major=major),
+             cv2.warpAffine(img, m, dsize=(640, 640),
+                            borderValue=(114, 114, 114)))
+    for h, w in ((640, 640), (375, 500)):
+        img = image(h, w)
+        diff("bgr_to_hsv", cc.bgr_to_hsv_numpy(img),
+             cv2.cvtColor(img, cv2.COLOR_BGR2HSV))
+        diff("hsv_to_bgr", cc.hsv_to_bgr_numpy(img),
+             cv2.cvtColor(img, cv2.COLOR_HSV2BGR))
+    log("cv2_compat's numpy versions against this host's cv2: "
+        + json.dumps(out))
+    for op in ("resize", "warp", "bgr_to_hsv", "hsv_to_bgr"):
+        if out[op]["max"] > 1 or out[op]["share"] > 1e-3:
+            raise AssertionError(f"cv2_compat's {op} is off this host's cv2 "
+                                 f"{out['cv2']} by {out[op]}")
+    return out
+
+
+def check_best_checkpoint(cfg, path, images):
+    """`best_ckpt.pth` loads strict into fresh modules on the card and the
+    CPU, whose float32 detections on `images` agree (`assert_dets_match`,
+    threshold in a gap of the CPU's scores)."""
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.ops.preproc import preproc
+    from yolox_tpu_torch.utils.checkpoint import load_checkpoint
+
+    model = load_checkpoint(path)["model"]
+    mods = {}
+    for dev in (CARD, "cpu"):
+        mods[dev] = YoloxModule.from_config(cfg, rng_seed=1, device=dev)
+        mods[dev].load_params(model)  # strict
+    x = np.stack([preproc(im, cfg.test_size, dtype=np.uint8)[0]
+                  for im in images])
+    scores = anchor_scores(mods["cpu"], x)
+    conf, gap = gap_threshold(scores, *np.quantile(scores, [0.9, 0.999]))
+    if gap < 2e-4:
+        raise AssertionError("no score gap wide enough to compare devices")
+    out = {}
+    for dev, mod in mods.items():
+        dets, valid = mod.serve(x, conf_thre=conf, max_det=1024)
+        out[dev] = (dets.cpu().numpy(), valid.cpu().numpy())
+    assert_dets_match(*out[CARD], *out["cpu"])
+    n = int(out["cpu"][1].sum())
+    log(f"best_ckpt.pth loads strict; card float32 detections match the "
+        f"CPU's on {len(images)} images ({n} detections, conf {conf:.5f})")
+    return n
+
+
+def run_trainer(cfg, n_convs, plain_step_device_ms, lines):
+    """Phase 10: `YoloxConfig.get_trainer(args).train()` on yolox-s at full
+    width and depth, 640 px, B 16, bf16 (`fp16`), `fused_conv_bwd`:
+    (a) host Mosaic/MixUp for an epoch, then the no-aug epoch, and the
+    same run resumed from its first epoch's checkpoint; (b)
+    `device_augment` for an epoch, then the no-aug epoch. Returns the
+    launch totals."""
+    import os
+    import tempfile
+    from argparse import Namespace
+
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.data import cv2_compat
+    from yolox_tpu_torch.utils.checkpoint import save_checkpoint
+
+    route = cv2_compat.route()
+    workers = min(8, os.cpu_count() or 1)
+    log(f"trainer: cv2_compat route {route}, {workers} loader workers, "
+        f"{os.cpu_count()} CPUs")
+    counters = _launch_counters()
+    train = trainer_images(TRAINER_N, TRAINER_SHAPES, 31)
+    eval_imgs = eval_images(TRAINER_EVAL_N, seed=37)
+    # the starting weights detect their own anchor cells (class 0) and the
+    # evaluation set's ground truth is those cells, so the briefly trained
+    # EMA model scores an AP above 0 and best-AP tracking writes
+    # best_ckpt.pth
+    start = anchor_start(
+        YoloxModule.from_config(cfg, rng_seed=4321, device="cpu"))
+    gt = anchor_boxes(eval_imgs, cfg.test_size)
+
+    out = {"card": nvidia_smi() if CARD != "cpu" else "cpu",
+           "cv2_compat_route": route, "workers": workers,
+           "cpu_count": os.cpu_count(),
+           "plain_step_device_ms_bf16_fused": plain_step_device_ms,
+           "batch": TRAINER_B, "train_images": TRAINER_N,
+           "eval_images": TRAINER_EVAL_N}
+    if route == "cv2":
+        out["cv2_compat_vs_host"] = cv2_compat_vs_host()
+    else:
+        log("no cv2 on this host to hold cv2_compat's numpy versions to")
+    totals = dict.fromkeys(counters, 0)
+    fields = dict(max_epoch=2, no_aug_epochs=0, warmup_epochs=1,
+                  eval_interval=1,
+                  multiscale_range=TRAINER_MULTISCALE_RANGE,
+                  data_num_workers=workers, fused_conv_bwd=True,
+                  save_history_ckpt=False, print_interval=10, seed=0)
+    with tempfile.TemporaryDirectory() as root:
+        start_ckpt = str(Path(root) / "start")
+        save_checkpoint({"model": start.state_dict()}, False, start_ckpt,
+                        "start")
+        start_ckpt = str(Path(start_ckpt) / "start_ckpt.pth")
+        # (a) keeps its per-epoch checkpoints; the resume restarts the
+        # same run from the one written after its first epoch
+        first_epoch = str(Path(root) / "out" / "a" / "epoch_1_ckpt.pth")
+        runs = (("a", {"save_history_ckpt": True}, start_ckpt, False),
+                ("a_resume", {}, first_epoch, True),
+                ("b", {"device_augment": True}, start_ckpt, False))
+        for name, extra, ckpt, resume in runs:
+            tcfg = trainer_config(cfg, root, train, (eval_imgs, gt),
+                                  **{**fields, **extra})
+            args = Namespace(batch_size=TRAINER_B, fp16=True, cache=None,
+                             logger="tensorboard", ckpt=ckpt,
+                             resume=resume, start_epoch=None,
+                             name=name.split("_")[0], device=CARD)
+            profile_env = name == "a" and CARD != "cpu"
+            if profile_env:
+                os.environ.update({
+                    "YOLOX_PROFILE_DIR": str(Path(root) / "trace"),
+                    "YOLOX_PROFILE_START": str(TRAINER_PROFILE[0]),
+                    "YOLOX_PROFILE_ITERS": str(TRAINER_PROFILE[1])})
+            try:
+                trainer = tcfg.get_trainer(args)
+                rec = instrument_trainer(trainer, counters)
+                if CARD != "cpu":
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                trainer.train()
+                wall = time.perf_counter() - t0
+            finally:
+                for k in ("YOLOX_PROFILE_DIR", "YOLOX_PROFILE_START",
+                          "YOLOX_PROFILE_ITERS"):
+                    os.environ.pop(k, None)
+            aug = {0} if name == "b" else set()
+            check_trainer_run(name, trainer, rec, n_convs, aug)
+            for r in rec["iters"] + rec["evals"]:
+                for k in totals:
+                    totals[k] += r["launches"][k]
+            res = {**trainer_times(rec, trainer.max_iter * TRAINER_B),
+                   "train_s": wall, "best_ap": trainer.best_ap,
+                   "evals": [(e["epoch"], round(e["best_ap"], 5))
+                             for e in rec["evals"]],
+                   "sizes": [it["size"][0] for it in rec["iters"]]}
+            if CARD != "cpu":
+                res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            if profile_env:
+                res.update(profiled_busy(trainer, res["median_iter_ms"]))
+            files = sorted(p.name for p in Path(trainer.file_name).glob(
+                "*_ckpt.pth"))
+            res["checkpoints"] = files
+            if name == "a":
+                for f in ("latest_ckpt.pth", "last_mosaic_epoch_ckpt.pth",
+                          "best_ckpt.pth"):
+                    if f not in files:
+                        raise AssertionError(f"run (a) wrote {files}, no {f}")
+                res["best_vs_cpu_detections"] = check_best_checkpoint(
+                    cfg, str(Path(trainer.file_name) / "best_ckpt.pth"),
+                    eval_imgs[:TRAINER_CHECK_N])
+            if name == "a":
+                run_a = rec
+            if name == "a_resume":
+                check_resume(trainer, rec, run_a)
+                res["start_epoch"] = rec["start_epoch"]
+                res["ema_updates_at_start"] = rec["ema_updates_at_start"]
+            if name == "a":
+                res["loader_alone_img_per_s"] = loader_rates(tcfg)
+            log(f"trainer {name}: " + json.dumps(
+                {k: v for k, v in res.items()
+                 if k not in ("iter_ms", "loader_wait_ms")}))
+            out[name] = res
+            del trainer
+    lines.append({"trainer": out})
+    return totals
+
+
 def main() -> int:
     try:
         import torch
@@ -2392,13 +2982,23 @@ def main() -> int:
         + json.dumps(sorted(set(shapes))))
     if len(shapes) != 43:
         raise AssertionError("yolox-s has 43 1x1 SiLU BaseConvs")
-    multiscale = sorted(set(kernel_conv_shapes(module, 480))
-                        | set(kernel_conv_shapes(module, 800)))
-    log(f"{len(multiscale)} distinct 1x1 shapes at 480 and 800 px: "
+    # every size phase 10's multiscale can draw
+    sizes = [h for h, _ in trainer_multiscale(cfg).multiscale_sizes()
+             if h != 640]
+    multiscale = sorted(set().union(*(kernel_conv_shapes(module, s)
+                                      for s in sizes)) - set(shapes))
+    log(f"{len(multiscale)} distinct 1x1 shapes at {sizes} px: "
         + json.dumps(multiscale))
     del module
     kernels += run_train(cfg, rng, shapes, multiscale, lines)
     kernels += run_augment(cfg, rng, len(shapes), lines)
+    plain = next(line["train"] for line in lines if "train" in line)
+    trainer_launches = run_trainer(
+        cfg, len(shapes), plain["bfloat16_fused"].get("device_ms"), lines)
+    for entry in kernels:
+        entry["launches_trainer"] = trainer_launches[
+            {"stem_conv_bn_act": "stem", "nms_keep": "nms"}.get(
+                entry["name"], entry["name"])]
     for line in lines:
         log(json.dumps(line))
     log(json.dumps({"kernels": kernels}))

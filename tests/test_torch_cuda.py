@@ -411,3 +411,26 @@ def test_augmented_step_on_cuda(cuda):
     assert (shear_xy.launches, shear_x.launches) == (before[0] + 1,
                                                      before[1])
     assert all(torch.isfinite(v).all() for v in losses.values())
+
+
+def test_prefetcher_copies_pinned_batches(cuda):
+    """With `pin_memory` the training loader hands over pinned batches
+    (pinned in the torch loader's thread), and `DevicePrefetcher` copies
+    them to the card unchanged."""
+    from yolox_tpu_torch.data import DataLoader, DevicePrefetcher
+
+    rng = np.random.default_rng(3)
+    items = [(rng.integers(0, 256, (32, 32, 3)).astype(np.float32),
+              rng.uniform(0, 32, (6, 5)).astype(np.float32), (32, 32), i)
+             for i in range(8)]
+    loader = DataLoader(items, batch_sampler=[[0, 1, 2, 3], [4, 5, 6, 7]],
+                        num_workers=0, pin_memory=True)
+    host = list(loader)
+    assert all(b[0].is_pinned() and b[1].is_pinned() for b in host)
+    got = list(DevicePrefetcher(loader, cuda))
+    torch.cuda.synchronize()
+    assert len(got) == 2
+    for (gi, gt, ginfo, gid), (hi, ht, hinfo, hid) in zip(got, host):
+        assert gi.device.type == "cuda" and gt.device.type == "cuda"
+        assert torch.equal(gi.cpu(), hi) and torch.equal(gt.cpu(), ht)
+        assert ginfo == hinfo and gid == hid

@@ -281,7 +281,7 @@ def test_config_matches_jax():
     assert YoloxConfig.get_named_config("yolox-s") is not \
         YoloxConfig.get_named_config("yolox-s")
     with pytest.raises(NotImplementedError, match="later slice"):
-        a.get_trainer(None)
+        a.get_data_loader(4, is_distributed=True)  # data-parallel
     with pytest.raises(NotImplementedError):
         YoloxConfig.get_named_config("yolov3").get_model(device="cpu")
 

@@ -2,10 +2,11 @@
 
 The same field table, defaults and `-D key=value` coercion as the JAX
 package's `yolox_tpu/config.py`, so configs and overrides carry over
-unchanged. The port builds the model, the optimizer, the LR scheduler and
-the evaluation dataset, loader and evaluator; the training dataset,
-loader and trainer factories raise `NotImplementedError` until their
-modules are ported.
+unchanged. The port builds the model, the optimizer, the LR scheduler,
+the training dataset and loader (host Mosaic/MixUp, or raw tiles for the
+on-device augmentation), the evaluation dataset, loader and evaluator, and
+the single-process trainer; a data-parallel run raises
+`NotImplementedError` until its slice is ported.
 
 Fields that tune the JAX package's TPU layouts (`lane_fold*`,
 `serve_lane_fold`, `serve_stem_s2d*`, `train_stem_s2d`, `remat`) are kept
@@ -17,6 +18,8 @@ from __future__ import annotations
 import ast
 from dataclasses import dataclass
 from typing import Any, Dict, Literal, Optional, Tuple
+
+import numpy as np
 
 
 def _later(what: str):
@@ -113,6 +116,13 @@ class YoloxConfig:
         if h % 32 or w % 32:
             raise ValueError("input size must be multiples of 32")
 
+    def resolved_simota_candidates(self) -> Optional[int]:
+        """The SimOTA compaction cap: an explicit int, or None for
+        dense-exact assignment over all anchors."""
+        if self.simota_candidates is None:
+            return None
+        return int(self.simota_candidates)
+
     def update(self, opts: Dict[str, str]):
         """Apply `-D key=value` CLI overrides with type coercion."""
         for k, v in opts.items():
@@ -154,11 +164,96 @@ class YoloxConfig:
         return YoloxModule.from_config(self, rng_seed=rng_seed, device=device)
 
     def get_dataset(self, cache: bool = False, cache_type: str = "ram"):
-        _later("the COCO dataset (training data pipeline)")
+        from yolox_tpu_torch.data import CocoDataset, TrainTransform
+
+        return CocoDataset(
+            data_dir=self.data_dir,
+            json_file=self.train_ann,
+            img_size=self.input_size,
+            preproc=TrainTransform(
+                max_labels=50,
+                flip_prob=self.flip_prob,
+                hsv_prob=self.hsv_prob,
+            ),
+            cache=cache,
+            cache_type=cache_type,
+        )
 
     def get_data_loader(self, batch_size, is_distributed=False, no_aug=False,
                         cache_img: Optional[str] = None):
-        _later("the training data loader")
+        """The training loader: host Mosaic/MixUp batches, or with
+        `device_augment` (and not `no_aug`) raw tiles for the on-device
+        augmentation; the no-aug phase letterboxes on the host."""
+        from yolox_tpu_torch.data import (
+            DataLoader,
+            InfiniteSampler,
+            MosaicDetection,
+            TileDataset,
+            TrainTransform,
+            YoloBatchSampler,
+        )
+
+        if is_distributed:
+            _later("data-parallel training (the torch.distributed loader)")
+        if self.dataset is None:
+            if cache_img is not None:
+                raise ValueError("cache_img must be None if you didn't "
+                                 "create self.dataset before launch")
+            self.dataset = self.get_dataset(cache=False)
+
+        transform = TrainTransform(max_labels=self.max_labels,
+                                   flip_prob=self.flip_prob,
+                                   hsv_prob=self.hsv_prob)
+        if self.device_augment and not no_aug:
+            dataset = TileDataset(self.dataset,
+                                  tile_size=max(self.input_size))
+        elif self.device_augment:
+            dataset = MosaicDetection(dataset=self.dataset, mosaic=False,
+                                      img_size=self.input_size,
+                                      preproc=transform)
+        else:
+            dataset = MosaicDetection(
+                dataset=self.dataset,
+                mosaic=not no_aug,
+                img_size=self.input_size,
+                preproc=transform,
+                degrees=self.degrees,
+                translate=self.translate,
+                mosaic_scale=self.mosaic_scale,
+                mixup_scale=self.mixup_scale,
+                shear=self.shear,
+                enable_mixup=self.enable_mixup,
+                mosaic_prob=self.mosaic_prob,
+                mixup_prob=self.mixup_prob,
+            )
+        sampler = InfiniteSampler(len(dataset),
+                                  seed=self.seed if self.seed else 0)
+        batch_sampler = YoloBatchSampler(sampler=sampler,
+                                         batch_size=batch_size,
+                                         mosaic=not no_aug)
+        return DataLoader(dataset, batch_sampler=batch_sampler,
+                          num_workers=self.data_num_workers)
+
+    def random_resize(self, rng: np.random.Generator):
+        """Draw a multiscale input size from the 32-aligned bucket set."""
+        size_factor = self.input_size[1] * 1.0 / self.input_size[0]
+        if self.random_size is None:
+            min_size = int(self.input_size[0] / 32) - self.multiscale_range
+            max_size = int(self.input_size[0] / 32) + self.multiscale_range
+            self.random_size = (min_size, max_size)
+        size = int(rng.integers(self.random_size[0], self.random_size[1] + 1))
+        return (int(32 * size), 32 * int(size * size_factor))
+
+    def multiscale_sizes(self):
+        """The full 32-aligned bucket set `random_resize` draws from."""
+        size_factor = self.input_size[1] * 1.0 / self.input_size[0]
+        if self.random_size is None:
+            min_size = int(self.input_size[0] / 32) - self.multiscale_range
+            max_size = int(self.input_size[0] / 32) + self.multiscale_range
+        else:
+            min_size, max_size = self.random_size
+        return [(32 * s, 32 * int(s * size_factor))
+                for s in range(int(min_size), int(max_size) + 1)]
 
     def get_optimizer(self, batch_size, module):
         """Three-group nesterov SGD over `module` (the reference's
@@ -226,7 +321,10 @@ class YoloxConfig:
         )
 
     def get_trainer(self, args):
-        _later("the trainer")
+        """The single-process `Trainer` (`args.device`, default cuda)."""
+        from yolox_tpu_torch.core.trainer import Trainer
+
+        return Trainer(self, args)
 
     def eval(self, model, evaluator, is_distributed=False, half=False,
              return_outputs=False):

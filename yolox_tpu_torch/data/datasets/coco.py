@@ -7,10 +7,11 @@ boxes clipped to xyxy, class index = position in sorted category ids,
 images pre-resized by r = min(target/h, target/w); `pull_item` returns
 (BGR uint8 image, (N, 5) xyxy+cls labels, (h, w), img_id).
 
-cv2 is imported only where an image is read or resized, with Pillow as
-the fallback, and an image already at the target scale is not resized
-at all (`ops/preproc.py` does the same), so a subclass that makes its
-images in memory needs neither.
+Images are decoded by cv2, else Pillow (`read_bgr`, which names the
+missing decoder when the host has neither), and resized by
+`data/cv2_compat.resize_linear` (cv2, else its numpy version); an image
+already at the target scale is not resized at all, so a subclass that
+makes its images in memory needs no image library.
 """
 
 from __future__ import annotations
@@ -21,12 +22,12 @@ import os
 import numpy as np
 
 from yolox_tpu_torch.data.coco_json import COCO
+from yolox_tpu_torch.data.cv2_compat import resize_linear
 from yolox_tpu_torch.data.dataloading import get_yolox_datadir
 from yolox_tpu_torch.data.datasets.datasets_wrapper import (
     CacheDataset,
     cache_read_img,
 )
-from yolox_tpu_torch.ops.preproc import _resize_linear
 
 _DROP_TOP = ("info", "licenses")
 _DROP_IMG = ("license", "coco_url", "date_captured", "flickr_url")
@@ -62,14 +63,21 @@ def _clean_boxes(annos, width, height, class_index):
 
 def read_bgr(path):
     """An image file as an HWC BGR uint8 array (cv2's layout), or None
-    when it cannot be read: cv2 if present, else Pillow."""
+    when it cannot be read: cv2 if present, else Pillow; with neither, an
+    ImportError that names the missing decoder."""
     try:
         import cv2
     except ImportError:
         cv2 = None
     if cv2 is not None:
         return cv2.imread(path, cv2.IMREAD_COLOR)
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ImportError(
+            f"cannot decode {path}: this host has no image decoder (neither "
+            "cv2 (opencv-python) nor Pillow imports); install one, or "
+            "serve the images in memory (override load_image)") from None
 
     try:
         with Image.open(path) as im:
@@ -85,7 +93,7 @@ def resize_to_fit(img, size):
     size_wh = (int(img.shape[1] * r), int(img.shape[0] * r))
     if size_wh == (img.shape[1], img.shape[0]):
         return img.astype(np.uint8)
-    return _resize_linear(img, size_wh).astype(np.uint8)
+    return resize_linear(img, size_wh).astype(np.uint8)
 
 
 class CocoDataset(CacheDataset):

@@ -5,13 +5,15 @@ torch's Dataset base).
 `Dataset` carries a mutable `input_dim` (multiscale training) and the
 `mosaic_getitem` protocol: the batch sampler passes `(mosaic_flag, idx,
 seed)` tuples so mosaic can be toggled mid-training and every sample draw is
-deterministically seeded. `CacheDataset` adds RAM/disk image caching with a
-thread-pool warmup. `ConcatDataset` and `MixConcatDataset` come with the
-training data path (ROADMAP M7).
+deterministically seeded. `ConcatDataset` chains datasets and
+`MixConcatDataset` forwards the sampler's tuples to the dataset an index
+falls in. `CacheDataset` adds RAM/disk image caching with a thread-pool
+warmup.
 """
 
 from __future__ import annotations
 
+import bisect
 import copy
 import os
 import random
@@ -65,6 +67,58 @@ class Dataset:
         if not hasattr(self, "_rng"):
             self._rng = np.random.default_rng()
         return self._rng
+
+
+class ConcatDataset(Dataset):
+    """Datasets end to end (upstream `datasets_wrapper.py:69-100`)."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        if not self.datasets:
+            raise ValueError("datasets should not be empty")
+        self.cumulative_sizes = np.cumsum(
+            [len(d) for d in self.datasets]).tolist()
+        if hasattr(self.datasets[0], "input_dim"):
+            self._input_dim = self.datasets[0].input_dim
+
+    def __len__(self):
+        return self.cumulative_sizes[-1]
+
+    def _locate(self, idx):
+        if idx < 0:
+            if -idx > len(self):
+                raise ValueError(
+                    "absolute value of index should not exceed dataset "
+                    "length")
+            idx = len(self) + idx
+        dataset_idx = bisect.bisect_right(self.cumulative_sizes, idx)
+        sample_idx = idx if dataset_idx == 0 else (
+            idx - self.cumulative_sizes[dataset_idx - 1])
+        return dataset_idx, sample_idx
+
+    def __getitem__(self, idx):
+        dataset_idx, sample_idx = self._locate(idx)
+        return self.datasets[dataset_idx][sample_idx]
+
+    def pull_item(self, idx):
+        dataset_idx, sample_idx = self._locate(idx)
+        return self.datasets[dataset_idx].pull_item(sample_idx)
+
+
+class MixConcatDataset(ConcatDataset):
+    """`ConcatDataset` that takes the sampler's `(mosaic, idx, seed)`
+    tuples, remaps idx into the dataset it falls in and forwards the tuple
+    (upstream `datasets_wrapper.py:103-122`)."""
+
+    def __getitem__(self, index):
+        if not isinstance(index, int):
+            idx = index[1]
+        else:
+            idx = index
+        dataset_idx, sample_idx = self._locate(idx)
+        if not isinstance(index, int):
+            index = (index[0], sample_idx, *index[2:])
+        return self.datasets[dataset_idx][index]
 
 
 class CacheDataset(Dataset, metaclass=ABCMeta):

@@ -20,7 +20,7 @@ same samples; given the same draws, they compute the same batch.
 
 Input per sample: 4 mosaic tiles and 1 MixUp partner tile, each
 pre-resized to fit (S, S) and zero-padded, their true (h, w), and padded
-xyxy+cls labels.
+xyxy+cls labels; `TileDataset` serves them on the host.
 """
 
 from __future__ import annotations
@@ -28,8 +28,10 @@ from __future__ import annotations
 import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
+from yolox_tpu_torch.data.cv2_compat import resize_linear
 from yolox_tpu_torch.ops.warp import (
     PAD,
     margin_for,
@@ -38,6 +40,74 @@ from yolox_tpu_torch.ops.warp import (
 )
 
 Draws = Dict[str, torch.Tensor]
+
+
+class TileDataset:
+    """Host side of the device pipeline: serves raw tiles, no augmentation
+    (the JAX package's `TileDataset`, `device_augment.py:42-115`).
+
+    Each item is (tiles (5, T, T, 3) uint8, labels (5, L, 5) float32
+    xyxy+cls, tile_hw (5, 2) float32, img_id): the sample's own image, 3
+    mosaic partners and a MixUp partner (one with labels, as in the
+    reference's retry loop), each pre-resized by the wrapped dataset's
+    `pull_item` and zero-padded to (T, T). The partners are drawn from the
+    sample's seed in the JAX package's order.
+    """
+
+    def __init__(self, dataset, tile_size: int, max_labels_per_tile: int = 60):
+        self._dataset = dataset
+        self.tile_size = int(tile_size)
+        self.max_labels = int(max_labels_per_tile)
+        self.enable_mosaic = True  # close_mosaic() compatibility
+        self.input_dim = (self.tile_size, self.tile_size)
+
+    def __len__(self):
+        return len(self._dataset)
+
+    def _pull(self, index):
+        img, labels, _, img_id = self._dataset.pull_item(index)
+        t = self.tile_size
+        h, w = img.shape[0], img.shape[1]
+        if h > t or w > t:  # pull_item pre-resizes to <= t; others may not
+            r = min(t / h, t / w)
+            img = resize_linear(img, (int(w * r), int(h * r)))
+            labels = labels.copy()
+            labels[:, :4] *= r
+            h, w = img.shape[0], img.shape[1]
+        tile = np.zeros((t, t, 3), np.uint8)
+        tile[:h, :w] = img
+        lab = np.zeros((self.max_labels, 5), np.float32)
+        n = min(len(labels), self.max_labels)
+        lab[:n] = labels[:n]
+        return tile, lab, (h, w), img_id
+
+    def __getitem__(self, index):
+        if not isinstance(index, int):  # (mosaic_flag, idx[, seed]) tuples
+            seed = index[2] if len(index) > 2 else None
+            rng = np.random.default_rng(seed)
+            index = index[1]
+        else:
+            rng = np.random.default_rng()
+        n = len(self._dataset)
+        indices = [index] + [int(rng.integers(0, n)) for _ in range(3)]
+        # the MixUp partner must have labels (the reference's retry loop,
+        # `mosaicdetection.py:137-140`)
+        while True:
+            mix_idx = int(rng.integers(0, n))
+            if len(self._dataset.load_anno(mix_idx)) > 0:
+                break
+        indices.append(mix_idx)
+
+        tiles = np.zeros((5, self.tile_size, self.tile_size, 3), np.uint8)
+        labels = np.zeros((5, self.max_labels, 5), np.float32)
+        hw = np.zeros((5, 2), np.float32)
+        img_id = None
+        for i, idx in enumerate(indices):
+            tiles[i], labels[i], hw_i, iid = self._pull(idx)
+            hw[i] = hw_i
+            if i == 0:
+                img_id = iid
+        return tiles, labels, hw, img_id
 
 
 # ---------------------------------------------------------------------------

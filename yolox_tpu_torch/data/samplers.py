@@ -1,10 +1,81 @@
-"""Batch samplers, the port's copy of the evaluation sampler of the JAX
-package's `yolox_tpu/data/samplers.py`. The training samplers
-(`InfiniteSampler`, `YoloBatchSampler`) come with the host data path
-(ROADMAP M7).
+"""Batch samplers, the port's copy of the JAX package's
+`yolox_tpu/data/samplers.py` (the reference's `yolox/data/samplers.py`).
+
+`InfiniteSampler` is a seeded infinite shuffled index stream, strided by
+(rank, world_size). `YoloBatchSampler` yields batches of `(mosaic_flag,
+idx, sample_seed)` tuples: the per-sample seed makes a sample's
+augmentation a function of (seed, sample ordinal), whatever the worker
+that builds it. `SequentialBatchSampler` gives the evaluation's finite
+batches.
 """
 
 from __future__ import annotations
+
+import itertools
+from typing import Iterator, List, Optional, Tuple
+
+import numpy as np
+
+
+class InfiniteSampler:
+    """Infinite shuffled index stream, rank-strided (`samplers.py:28-83`)."""
+
+    def __init__(self, size: int, shuffle: bool = True,
+                 seed: Optional[int] = 0, rank: int = 0,
+                 world_size: int = 1):
+        if size <= 0:
+            raise ValueError(f"size must be positive, got {size}")
+        self._size = size
+        self._shuffle = shuffle
+        self._seed = int(seed or 0)
+        self._rank = rank
+        self._world_size = world_size
+
+    def __iter__(self) -> Iterator[int]:
+        yield from itertools.islice(
+            self._infinite_indices(), self._rank, None, self._world_size)
+
+    def _infinite_indices(self):
+        rng = np.random.default_rng(self._seed)
+        while True:
+            if self._shuffle:
+                yield from rng.permutation(self._size).tolist()
+            else:
+                yield from range(self._size)
+
+    def __len__(self):
+        return self._size // self._world_size
+
+
+class YoloBatchSampler:
+    """Batches of (mosaic, idx, seed) tuples (`samplers.py:12-25`)."""
+
+    def __init__(self, sampler, batch_size: int, drop_last: bool = False,
+                 mosaic: bool = True, seed: int = 0):
+        self.sampler = sampler
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.mosaic = mosaic
+        self.seed = seed
+
+    def __iter__(self) -> Iterator[List[Tuple[bool, int, int]]]:
+        batch = []
+        ordinal = 0
+        for idx in self.sampler:
+            sample_seed = (self.seed * 1_000_003 + ordinal) & 0x7FFFFFFF
+            batch.append((self.mosaic, int(idx), sample_seed))
+            ordinal += 1
+            if len(batch) == self.batch_size:
+                yield batch
+                batch = []
+        if batch and not self.drop_last:
+            yield batch
+
+    def __len__(self):
+        n = len(self.sampler)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
 
 class SequentialBatchSampler:

@@ -9,8 +9,8 @@ results converted to COCO json format on the host (rescale by
 evaluated with the self-contained COCOeval (`evaluators/cocoeval.py`).
 CUDA launches are asynchronous, so batch k+1 is dispatched before batch
 k's detections are fetched and converted. Gathering detections from
-several processes comes with `torch.distributed` in the trainer (ROADMAP
-M7); until then more than one process raises.
+several processes comes with `torch.distributed` in the data-parallel
+trainer (ROADMAP M7); until then more than one process raises.
 """
 
 from __future__ import annotations
@@ -43,8 +43,8 @@ def require_one_process(what: str) -> None:
     if process_rank_and_count()[1] > 1:
         raise NotImplementedError(
             f"{what} across processes gathers detections with "
-            "torch.distributed, which comes with the trainer (ROADMAP M7); "
-            "evaluate in one process")
+            "torch.distributed, which comes with the data-parallel "
+            "trainer (ROADMAP M7); evaluate in one process")
 
 
 def model_device(model) -> torch.device:

@@ -5,9 +5,10 @@
   cv2 INTER_LINEAR resize to (round-down w*r, h*r), cast uint8,
   paste top-left into a 114-filled canvas; no normalization; HWC out.
 
-cv2 (or Pillow as a fallback) is imported only when an image has to be
-resized: a frame already at the target size is pasted as it is, which is
-exact because an identity-scale INTER_LINEAR resize returns its input.
+The resize is `data/cv2_compat.resize_linear`: cv2 when it imports, else
+its numpy version of cv2's fixed-point INTER_LINEAR (bit-equal to cv2). A
+frame already at the target size is pasted as it is, which is exact
+because an identity-scale INTER_LINEAR resize returns its input.
 """
 
 from __future__ import annotations
@@ -18,16 +19,10 @@ import numpy as np
 
 
 def _resize_linear(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
-    try:
-        import cv2
-    except ImportError:
-        cv2 = None
-    if cv2 is not None:
-        return cv2.resize(img, size_wh, interpolation=cv2.INTER_LINEAR)
-    # Pillow's BILINEAR can differ from cv2 by one grey level in rare pixels
-    from PIL import Image
+    # imported here: `yolox_tpu_torch.data` imports this module
+    from yolox_tpu_torch.data.cv2_compat import resize_linear
 
-    return np.asarray(Image.fromarray(img).resize(size_wh, Image.BILINEAR))
+    return resize_linear(img, size_wh)
 
 
 def letterbox_ratio(image_hw, target_hw) -> float:
