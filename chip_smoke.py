@@ -108,8 +108,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    median iteration and loader-wait ms, the busy share of 3 profiled
    iterations, peak memory, the Mosaic loader alone on each route.
 
-Then JSON lines with the serve, evaluation, training, augmentation and
-trainer times and the kernels, the `nvidia-smi` name and power limit, and as the last line
+11. (run after phase 9) yolov3 and int8 serving (`run_int8`): Q1 and Q2,
+   the int8 conv kernels, against their plain versions at every distinct
+   conv shape of yolox-s (B 8, 640 px, the ladder's folded 6x6 stem
+   included), yolov3 (B 2, 640 px) and nano (B 8, 416 px; Q2 at its
+   depthwise shapes) and at edge cases (Cin 3 and 16, odd sizes, stride 2
+   at the border, codes not 16-byte aligned): float32, bf16 and
+   requantized outputs at the `Q_*` tolerances, the int32 sums exactly
+   (relu, unit scale), repeat launches bit-equal; yolov3 at full width
+   and depth: `YoloxModule.__call__` against
+   `tests/golden/yolov3_seed777.npz`, `Yolox.__call__` on 1 and 3 frames
+   against the CPU (K2 once a call, K1 and Q1 never); int8 yolox-s at 640
+   px, both modes, float32 and bf16 modules, B 1 and 8, with a table
+   calibrated on the CPU (and the card's own calibration against it):
+   raw head outputs against the CPU (`INT8_*_TOL`), `Yolox.__call__`
+   detections against the CPU's with the launch counters read around it
+   (Q1 once per dense BaseConv, the ladder's stem included; K1 0 or 1 by
+   mode; K2 once; Q2 never); nano int8 HBM at 416 px (Q2 once per
+   depthwise conv); then serve latency (B 1) and throughput (B 32) of
+   yolov3 (float32, bf16) and int8 yolox-s (both modes, bf16 module), Q1
+   over one B 32 ladder call and Q2 over one nano call (device time,
+   plain version, `int8_conv_bound`, cuDNN's bf16 conv and, at the
+   largest and most frequent shape, `torch._int_mm` on an im2col).
+
+Then JSON lines with the serve, evaluation, training, augmentation,
+int8 and trainer times and the kernels, the `nvidia-smi` name and power limit, and as the last line
 `{"ok": true, "device": {...}}`.
 
 TF32 is turned off here (cuDNN and matmul) before any comparison with
@@ -1006,13 +1029,15 @@ TRAIN_LOSS_RTOL = 1e-3
 
 def _launch_counters():
     from yolox_tpu_torch.ops.conv_bwd import main_1x1, reduce_sums
+    from yolox_tpu_torch.ops.int8_conv import int8_conv, int8_dwconv
     from yolox_tpu_torch.ops.nms_kernel import nms_keep
     from yolox_tpu_torch.ops.shear_kernel import shear_x, shear_xy
     from yolox_tpu_torch.ops.stem import stem_conv_bn_act
 
     return {"reduce_sums": reduce_sums, "main_1x1": main_1x1,
             "stem": stem_conv_bn_act, "nms": nms_keep, "shear_x": shear_x,
-            "shear_xy": shear_xy}
+            "shear_xy": shear_xy, "int8_conv": int8_conv,
+            "int8_dwconv": int8_dwconv}
 
 
 def phase_conv_bwd(shapes, multiscale):
@@ -1052,7 +1077,8 @@ def phase_train(cfg, x, labels, n_kernel_convs):
 
     counters = _launch_counters()
     want = {"reduce_sums": n_kernel_convs, "main_1x1": n_kernel_convs,
-            "stem": 0, "nms": 0, "shear_x": 0, "shear_xy": 0}
+            "stem": 0, "nms": 0, "shear_x": 0, "shear_xy": 0,
+            "int8_conv": 0, "int8_dwconv": 0}
     total = dict.fromkeys(counters, 0)
     for dtype in (torch.float32, torch.bfloat16):
         module = YoloxModule.from_config(cfg, rng_seed=4321)
@@ -1640,7 +1666,8 @@ def phase_train_aug(cfg, tiles, hw, labels, n_kernel_convs):
 
     counters = _launch_counters()
     want = {"shear_xy": 1, "shear_x": 0, "reduce_sums": n_kernel_convs,
-            "main_1x1": n_kernel_convs, "stem": 0, "nms": 0}
+            "main_1x1": n_kernel_convs, "stem": 0, "nms": 0,
+            "int8_conv": 0, "int8_dwconv": 0}
     total = dict.fromkeys(counters, 0)
     args = [torch.from_numpy(a).cuda() for a in (tiles, hw, labels)]
     for dtype in (torch.float32, torch.bfloat16):
@@ -2635,14 +2662,16 @@ def check_trainer_run(name, trainer, rec, n_convs, aug_epochs):
                                  f"{it['progress']} off the schedule")
         k5 = 1 if it["epoch"] in aug_epochs else 0
         want = {"reduce_sums": n_convs, "main_1x1": n_convs, "stem": 0,
-                "nms": 0, "shear_x": 0, "shear_xy": k5}
+                "nms": 0, "shear_x": 0, "shear_xy": k5, "int8_conv": 0,
+                "int8_dwconv": 0}
         if it["launches"] != want:
             raise AssertionError(f"{name}: iteration {it['progress']} "
                                  f"launched {it['launches']}, want {want}")
     batches = -(-TRAINER_EVAL_N // TRAINER_B)
     for ev in rec["evals"]:
         want = {"reduce_sums": 0, "main_1x1": 0, "stem": batches,
-                "nms": batches, "shear_x": 0, "shear_xy": 0}
+                "nms": batches, "shear_x": 0, "shear_xy": 0, "int8_conv": 0,
+                "int8_dwconv": 0}
         if ev["launches"] != want:
             raise AssertionError(f"{name}: evaluation launched "
                                  f"{ev['launches']}, want {want}")
@@ -2947,6 +2976,755 @@ def run_trainer(cfg, n_convs, plain_step_device_ms, lines):
     return totals
 
 
+# ------------------------------------------- int8 serving and yolov3 (11)
+
+# int8 dense rate of the H100 SXM (data sheet, dense)
+H100_INT8_OPS = 1979e12
+# Q1 / Q2 against their plain versions on the card: the int32 sums exactly
+# (relu at a unit scale, float32(acc) on both sides); float32 outputs
+# within Q_F32_RTOL |ref| (4 ulp); bf16 outputs within one bf16 ulp;
+# requantized codes equal but for at most Q_CODE_FRAC of them, off by 1
+# (an output within rounding of a code boundary: the activation's expf is
+# CUDA's on both sides, but the tolerance does not count on it)
+Q_F32_RTOL = 2.0 ** -21
+Q_CODE_FRAC = 1e-4
+INT8_SIZE = 640      # yolox-s and yolov3 (phase 11)
+INT8_B = 8           # int8 serving checks at B 1 and INT8_B
+V3_B = 2             # Q1 at yolov3's shapes
+NANO_SIZE, NANO_B = 416, 8
+INT8_CALIB_B = 2     # calibration frames
+INT8_TIME_B = 32
+# the card against the CPU port, int8 raw head outputs: rms over the
+# output's spread, max |d|. The ladder's backbone is the same arithmetic
+# on both (Q1 / Q2 equal their plain versions; the weights are quantized
+# on the host; the epilogue's SiLU is float64 rounded once): a float32
+# module differs only by cuDNN's float32 prediction convs
+# (INT8_LADDER_F32_TOL; measured 6.6e-8). Where the outputs are bf16 (the
+# HBM mode's prediction convs always, a bf16 module's) cuDNN and the CPU
+# round them apart by a bf16 ulp, and in the HBM mode K1's tensor-core stem
+# flips a code now and then: rms INT8_RMS_TOL (measured up to 0.0138, HBM
+# float32: not far under JAX's HBM int8-against-float allowance of 0.02,
+# as bf16 rounding is the same size), max two bf16 ulps of an output
+# below 8 (measured 0.031). JAX's ladder allowance is 0.15.
+INT8_LADDER_F32_TOL = 1e-5
+INT8_RMS_TOL, INT8_MAX_TOL = 2e-2, 2 * 2.0 ** -5
+# a table calibrated on the card against the CPU's: per entry, relative to
+# its largest value (the float forward's roundings; measured 3.7e-6)
+INT8_TABLE_TOL = 1e-4
+# detections of int8 serving, card against CPU: the float32 ladder at the
+# default (rtol 1e-4, atol 1e-2, labels equal). Where bf16 outputs decode
+# (the HBM mode, bf16 modules) rows match by box within INT8_DET_BOX_TOL
+# px and score within INT8_DET_SCORE_TOL (measured 4e-6 px, 0.011), and a
+# label may differ: class confidences in bf16 tie exactly (argmax takes
+# the first), so one bf16 rounding elsewhere moves the winner; on at most
+# INT8_LABEL_FLIPS of the rows (measured 2 of 39)
+INT8_DET_BOX_TOL, INT8_DET_SCORE_TOL, INT8_LABEL_FLIPS = 0.5, 0.03, 0.1
+INT8_MIN_DETS = 10   # a comparison of fewer detections proves little
+
+
+def int8_conv_bound(b, h, w, cin, cout, k, stride, groups=1, out_bytes=4):
+    """The least ms of one int8 conv on the H100: 2 B Ho Wo Cout k^2
+    Cin/groups operations at the dense int8 rate, or the codes in, the
+    int8 weights and the output at the HBM rate, whichever is larger.
+    Returns (ms, "operations" or "bytes")."""
+    pad = (k - 1) // 2
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (w + 2 * pad - k) // stride + 1
+    ops = 2.0 * b * ho * wo * cout * k * k * cin / groups
+    nbytes = (b * h * w * cin + cout * k * k * cin / groups
+              + b * ho * wo * cout * out_bytes)
+    t_ops, t_bytes = ops / H100_INT8_OPS, nbytes / H100_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def int8_conv_shapes(module, size, batch):
+    """Counter of (B, Cin, Cout, H, W, k, stride, groups) over the convs
+    the int8 modes run, read with hooks from one float forward at B 1 and
+    given B `batch`: each BaseConv, the Focus stem as its folded 2k x 2k
+    stride-2 conv on the 3-channel image."""
+    from collections import Counter
+
+    from yolox_tpu_torch.models.blocks import BaseConv, Focus
+
+    shapes, hooks = Counter(), []
+
+    def conv_hook(m, args):
+        c, x = m.conv, args[0]
+        shapes[(batch, x.shape[1], c.out_channels, x.shape[2], x.shape[3],
+                c.kernel_size[0], c.stride[0], c.groups)] += 1
+
+    def focus_hook(m, args):
+        c, x = m.conv.conv, args[0]
+        shapes[(batch, 3, c.out_channels, x.shape[1], x.shape[2],
+                2 * c.kernel_size[0], 2, 1)] += 1
+
+    for m in module.modules():
+        if isinstance(m, Focus):
+            hooks.append(m.register_forward_pre_hook(focus_hook))
+        elif isinstance(m, BaseConv):
+            hooks.append(m.register_forward_pre_hook(conv_hook))
+    try:
+        module(np.zeros((1, size, size, 3), np.uint8))
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+def q_inputs(gen, b, cin, cout, h, w, k, depthwise=False, offset=0):
+    """Random int8 codes (B, Cin, H, W) stored channels_last `offset` bytes
+    past an allocation, packed random int8 weights, an epilogue scale and
+    bias that put the outputs near 1, a requant scale for amax ~3-6; on
+    the generator's device."""
+    import torch
+
+    from yolox_tpu_torch.ops.int8_conv import pack_dw_weight, pack_weight
+
+    dev = gen.device
+    cout = cin if depthwise else cout
+    buf = torch.randint(-127, 128, (b * h * w * cin + offset,),
+                        generator=gen, dtype=torch.int8, device=dev)
+    x = buf[offset:].view(b, h, w, cin).permute(0, 3, 1, 2)
+    wq = torch.randint(-127, 128, (cout, 1 if depthwise else cin, k, k),
+                       generator=gen, dtype=torch.int8, device=dev)
+    w8 = pack_dw_weight(wq) if depthwise else pack_weight(wq)
+    typical = 127.0 * 127.0 * (wq[0].numel() ** 0.5) / 3
+    scale = (torch.rand(cout, generator=gen, device=dev) + 0.5) / typical
+    bias = torch.rand(cout, generator=gen, device=dev) * 2 - 1
+    out_scale = (torch.rand(cout, generator=gen, device=dev) + 1) * 3 / 127
+    return x, w8, scale, bias, out_scale
+
+
+def check_int8_conv(x, w, scale, bias, k, stride, out_scale, depthwise,
+                    act="silu"):
+    """Q1 (Q2 when `depthwise`) on one input against its plain version:
+    float32, bf16 and requantized outputs at the Q_* tolerances, the
+    unit-scale relu sums exactly; every kernel output twice, bit-equal.
+    Returns (max |d| of the float32 output, share of codes off by 1)."""
+    import torch
+
+    from yolox_tpu_torch.ops.int8_conv import (
+        epilogue_plain,
+        int8_conv,
+        int8_dwconv,
+        plain_sums,
+    )
+
+    run = int8_dwconv if depthwise else int8_conv
+    acc = plain_sums(x, w, k, stride, depthwise)
+    ones, zeros = torch.ones_like(scale), torch.zeros_like(bias)
+    f32, bf16 = torch.float32, torch.bfloat16
+    err, off = 0.0, 0.0
+    for kind, args in (("f32", (scale, bias, act, f32, None)),
+                       ("bf16", (scale, bias, act, bf16, None)),
+                       ("int8", (scale, bias, act, f32, out_scale)),
+                       ("sums", (ones, zeros, "relu", f32, None))):
+        got = run(x, w, args[0], args[1], k, stride, *args[2:])
+        again = run(x, w, args[0], args[1], k, stride, *args[2:])
+        ref = epilogue_plain(acc, *args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{kind}: two launches differ")
+        if got.shape != ref.shape or got.dtype != ref.dtype or \
+                not got.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError(f"{kind}: {got.dtype} {tuple(got.shape)} "
+                                 f"against {ref.dtype} {tuple(ref.shape)}")
+        d = (got.float() - ref.float()).abs()
+        if kind == "sums":
+            ok = torch.equal(got, ref)
+        elif kind == "f32":
+            err = d.max().item()
+            ok = bool((d <= Q_F32_RTOL * ref.abs()).all())
+        elif kind == "bf16":
+            ok = bool((d <= BF16_ULP * ref.float().abs()).all())
+        else:
+            off = (d > 0).float().mean().item()
+            ok = d.max().item() <= 1 and off <= Q_CODE_FRAC
+        if not ok:
+            raise AssertionError(f"{'Q2' if depthwise else 'Q1'} {kind} "
+                                 f"disagrees with its plain version: max "
+                                 f"|d| {d.max().item()}")
+    return err, off
+
+
+# edge cases beside the models' shapes: (B, Cin, Cout, H, W, k, stride,
+# groups, byte offset of the codes)
+Q1_EDGE = ((2, 3, 32, 33, 35, 3, 1, 1, 0), (1, 3, 16, 30, 46, 6, 2, 1, 0),
+           (2, 16, 32, 21, 19, 1, 1, 1, 0), (2, 16, 48, 17, 23, 3, 2, 1, 0),
+           (2, 24, 40, 13, 11, 3, 2, 1, 0), (3, 64, 72, 9, 7, 3, 2, 1, 0),
+           (2, 64, 128, 41, 39, 3, 2, 1, 1), (1, 48, 24, 15, 13, 1, 1, 1, 3))
+Q2_EDGE = ((2, 24, 24, 15, 17, 3, 2, 24, 0), (1, 40, 40, 9, 11, 3, 1, 40, 0),
+           (2, 64, 64, 27, 25, 3, 2, 64, 5))
+
+
+def phase_int8_kernels(cfgs):
+    """Q1 at every distinct dense conv shape of yolox-s (B INT8_B), yolov3
+    (B V3_B) and nano (B NANO_B), Q2 at nano's depthwise shapes, and the
+    edge cases (Cin 3 and 16, odd sizes, stride 2 at the border, codes
+    not 16-byte aligned), against their plain versions. Returns ({model:
+    shape Counter}, Q1 max error, Q2 max error)."""
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+
+    shapes = {}
+    for name, seed, size, b in (("yolox_s", 4321, INT8_SIZE, INT8_B),
+                                ("yolov3", 777, INT8_SIZE, V3_B),
+                                ("yolox_nano", 1234, NANO_SIZE, NANO_B)):
+        module = YoloxModule.from_config(cfgs[name], rng_seed=seed)
+        shapes[name] = int8_conv_shapes(module, size, b)
+        del module
+    cases = sorted({s + (0,) for c in shapes.values() for s in c})
+    cases += list(Q1_EDGE) + list(Q2_EDGE)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {"Q1": [0.0, 0.0, 0], "Q2": [0.0, 0.0, 0]}
+    for b, cin, cout, h, w, k, stride, groups, offset in cases:
+        dw = groups > 1
+        x, w8, scale, bias, out_scale = q_inputs(gen, b, cin, cout, h, w, k,
+                                                 dw, offset)
+        err, off = check_int8_conv(x, w8, scale, bias, k, stride, out_scale,
+                                   dw)
+        q = worst["Q2" if dw else "Q1"]
+        q[0], q[1], q[2] = max(q[0], err), max(q[1], off), q[2] + 1
+        del x, w8
+    log(f"Q1 at {worst['Q1'][2]} shapes, Q2 at {worst['Q2'][2]} (the models' "
+        "and the edge cases): sums exact, float32 max |d| "
+        f"{worst['Q1'][0]:.3g} / {worst['Q2'][0]:.3g}, codes off by 1 "
+        f"{worst['Q1'][1]:.3g} / {worst['Q2'][1]:.3g} of the outputs, "
+        "repeat launches bit-equal")
+    log("distinct shapes (B, Cin, Cout, H, W, k, stride, groups): "
+        + json.dumps({n: sorted(c) for n, c in shapes.items()}))
+    return shapes, worst["Q1"][0], worst["Q2"][0]
+
+
+def int8_raw(module, x, mode, table):
+    """Raw head outputs (a float32 numpy array per level) of `module` in
+    int8 `mode` at `table`."""
+    import torch
+
+    with module._int8_mode(mode, table), torch.inference_mode():
+        outs, _, _ = module.head.forward_raw_levels(
+            module.backbone(module._image_batch(x, mode)))
+    return [o.float().cpu().numpy() for o in outs]
+
+
+def match_rows_free_labels(g, w, thr=None):
+    """Detection rows (n, 7) of one image, box then two score factors
+    (obj, cls_conf; or score, 1) then label, against a reference's: every
+    reference row has a partner within `INT8_DET_BOX_TOL` px and
+    `INT8_DET_SCORE_TOL` of score, of its label where one qualifies. With
+    a threshold `thr`, rows of either side scoring within the score
+    tolerance of it may go unpaired (the two devices' scores may fall on
+    either side of it). Returns (label flips, unpaired rows, max box |d|,
+    max score |d|)."""
+    def near(score):
+        return thr is not None and score <= thr + INT8_DET_SCORE_TOL
+
+    if thr is None and g.shape != w.shape:
+        raise AssertionError(f"{len(g)} detections against {len(w)}")
+    free = np.ones(len(g), bool)
+    flips = unpaired = 0
+    box_d = score_d = 0.0
+    for row in w:
+        bd = np.abs(g[:, :4] - row[:4]).max(1) if len(g) else np.zeros(0)
+        sd = np.abs(g[:, 4] * g[:, 5] - row[4] * row[5])
+        ok = free & (bd <= INT8_DET_BOX_TOL) & (sd <= INT8_DET_SCORE_TOL)
+        if not ok.any():
+            if near(row[4] * row[5]):
+                unpaired += 1
+                continue
+            raise AssertionError(f"row {row.tolist()} has no partner")
+        same = ok & (g[:, 6] == row[6])
+        j = int(np.argmax(same if same.any() else ok))
+        free[j] = False
+        flips += int(g[j, 6] != row[6])
+        box_d, score_d = max(box_d, bd[j]), max(score_d, sd[j])
+    for row in g[free]:
+        if not near(row[4] * row[5]):
+            raise AssertionError(f"row {row.tolist()} has no partner")
+        unpaired += 1
+    return flips, unpaired, float(box_d), float(score_d)
+
+
+def match_int8_detections(got, want, thr):
+    """`match_rows_free_labels` over the images of two devices'
+    `Detections` lists at threshold `thr`; returns (paired rows, label
+    flips, unpaired rows, max box |d|, max score |d|)."""
+    rows = flips = unpaired = 0
+    box_d = score_d = 0.0
+    for g, w in zip(detections_as_rows(got), detections_as_rows(want)):
+        f, u, b, sc = match_rows_free_labels(g, w, thr)
+        rows, flips, unpaired = rows + len(w) - u, flips + f, unpaired + u
+        box_d, score_d = max(box_d, b), max(score_d, sc)
+    return rows, flips, unpaired, box_d, score_d
+
+
+def raw_close(got, want):
+    """(rms over the spread, max |d|) of raw outputs, worst level."""
+    rms = max(float(np.sqrt(((g - w) ** 2).mean()) / (w.std() + 1e-9))
+              for g, w in zip(got, want))
+    return rms, max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+
+
+def _only(counters, **launches):
+    """The launch counts a run should read: `launches`, 0 for the rest."""
+    return {k: launches.get(k, 0) for k in counters}
+
+
+def int8_card_vs_cpu(name, gpu, cpu, table, modes, frames, n_q1, n_q2):
+    """One model in each int8 mode: raw outputs at B 1 and INT8_B, card
+    against CPU; `Yolox.__call__` on the card (its `int8_qtab` /
+    `int8_hbm_qtab` set) for 1 and INT8_B frames with the launch counters
+    read around it, against the CPU's detections. Returns {mode: (rms,
+    max |d|, launches)}."""
+    import torch
+
+    from yolox_tpu_torch import Yolox, YoloxProcessor
+
+    out = {}
+    counters = _launch_counters()
+    bf16 = gpu.dtype == torch.bfloat16
+    reqs = [frames[:1], frames[:INT8_B]]
+    for mode in modes:
+        attr = "int8_qtab" if mode == "ladder" else "int8_hbm_qtab"
+        worst, scores = (0.0, 0.0), []
+        for f in reqs:
+            x = np.stack(f)
+            raws = [int8_raw(m, x, mode, table) for m in (gpu, cpu)]
+            r = raw_close(*raws)
+            worst = tuple(max(u, v) for u, v in zip(worst, r))
+            scores.append([np.concatenate(o, 1).reshape(-1, 85)
+                           for o in raws])
+        exact = mode == "ladder" and not bf16
+        if not (worst[0] <= (INT8_LADDER_F32_TOL if exact else INT8_RMS_TOL)
+                and worst[1] <= INT8_MAX_TOL):
+            raise AssertionError(f"{name} int8 {mode}: card against CPU "
+                                 f"rms {worst[0]:.3g}, max {worst[1]:.3g}")
+        card, host = (np.concatenate([s[i] for s in scores]) for i in (0, 1))
+        card, host = (o[:, 4] * o[:, 5:].max(-1) for o in (card, host))
+        log(f"{name} int8 {mode} {str(gpu.dtype).split('.')[-1]}: raw "
+            f"outputs card against CPU rms {worst[0]:.3g}, max "
+            f"{worst[1]:.3g}, scores max |d| {np.abs(card - host).max():.3g}")
+        thr, gap = gap_threshold(host, *np.quantile(host, [0.99, 0.999]))
+        if exact and gap < 1e-3:
+            raise AssertionError(f"{name} int8 {mode}: no score gap")
+        ys = []
+        for m in (gpu, cpu):
+            y = Yolox(m, YoloxProcessor(m.config))
+            setattr(y, attr, table)
+            ys.append(y)
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        got = [ys[0](f, threshold=thr) for f in reqs]
+        torch.cuda.synchronize()
+        n = {k: f.launches for k, f in counters.items()}
+        # the HBM mode keeps the Focus stem float (K1), the ladder runs its
+        # folded conv on Q1
+        hbm = int(mode == "hbm")
+        want = _only(counters, int8_conv=2 * (n_q1 - hbm),
+                     int8_dwconv=2 * n_q2, stem=2 * hbm, nms=2)
+        if n != want:
+            raise AssertionError(f"{name} int8 {mode}: launches {n}, want "
+                                 f"{want}")
+        n_dets, flips, unpaired, box_d, score_d = 0, 0, 0, 0.0, 0.0
+        for f, dets in zip(reqs, got):
+            want_dets = ys[1](f, threshold=thr)
+            if exact:
+                assert_detections_match(dets, want_dets)
+                n_dets += sum(len(d["labels"]) for d in dets)
+                continue
+            r = match_int8_detections(dets, want_dets, thr)
+            n_dets, flips, unpaired = (n_dets + r[0], flips + r[1],
+                                       unpaired + r[2])
+            box_d, score_d = max(box_d, r[3]), max(score_d, r[4])
+        if n_dets < INT8_MIN_DETS or flips > INT8_LABEL_FLIPS * n_dets:
+            raise AssertionError(f"{name} int8 {mode}: {n_dets} detections "
+                                 f"paired, {flips} labels differ")
+        log(f"{name} int8 {mode}: Yolox.__call__ (1 and {INT8_B} frames) "
+            f"launches {n}; {n_dets} detections at {thr:.4f} match the CPU"
+            + ("" if exact else f" ({unpaired} within {INT8_DET_SCORE_TOL} "
+               f"of the threshold unpaired, labels differ on {flips}, box "
+               f"max |d| {box_d:.3g} px, score {score_d:.3g})"))
+        out[mode] = (worst[0], worst[1], n)
+    return out
+
+
+def phase_yolov3(cfg, rng):
+    """yolov3 at full width and depth, 640 px: `YoloxModule.__call__`
+    against `tests/golden/yolov3_seed777.npz`, then `Yolox.__call__` on 1
+    and 3 uint8 frames against the CPU with the launch counters read
+    around it (K2 once a call, K1 and Q1 never). Returns (launches, the
+    card's module, a threshold)."""
+    import torch
+
+    from yolox_tpu_torch import Yolox, YoloxModule, YoloxProcessor
+    from yolox_tpu_torch.ops.nms import postprocess_device
+
+    gpu_mod = YoloxModule.from_config(cfg, rng_seed=777)
+    x = np.random.default_rng(97).uniform(0, 255, (2, 640, 640, 3)).astype(
+        np.float32)
+    out = gpu_mod(x)
+    want = np.load(GOLDEN / "yolov3_seed777.npz")
+    np.testing.assert_allclose(out.cpu().numpy()[:, ::997, :],
+                               want["head_slice"], rtol=1e-4, atol=1e-3)
+    dets, valid = postprocess_device(out, 80, 1e-5, 0.65, False, 64)
+    assert_dets_match(dets.cpu().numpy(), valid.cpu().numpy(), want["dets"],
+                      want["valid"], tie=GOLDEN_TIE)
+    log("yolov3 YoloxModule.__call__ matches tests/golden/yolov3_seed777.npz")
+    cpu_mod = spread_scores(
+        YoloxModule.from_config(cfg, rng_seed=777, device="cpu"),
+        rng.integers(0, 256, (2, 640, 640, 3), dtype=np.uint8))
+    gpu_mod.load_params(cpu_mod.state_dict())
+    gpu, cpu = (Yolox(m, YoloxProcessor(cfg)) for m in (gpu_mod, cpu_mod))
+    requests = [_frames(rng, 1), _frames(rng, 3)]
+    cuts = [gap_threshold(anchor_scores(cpu_mod, cpu.processor(
+        f, dtype=np.uint8)), 0.25, 0.45) for f in requests]
+    if min(g for _, g in cuts) < 1e-3:
+        raise AssertionError("no score gap wide enough to compare devices")
+    counters = _launch_counters()
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    got = [gpu(f, threshold=t) for f, (t, _) in zip(requests, cuts)]
+    torch.cuda.synchronize()
+    n = {k: f.launches for k, f in counters.items()}
+    if n != _only(counters, nms=2):
+        raise AssertionError(f"yolov3 serving launched {n}")
+    n_dets = 0
+    for f, (t, _), dets in zip(requests, cuts, got):
+        assert_detections_match(dets, cpu(f, threshold=t))
+        n_dets += sum(len(d["labels"]) for d in dets)
+    log(f"yolov3 Yolox.__call__ (1 and 3 frames) matches the CPU: {n_dets} "
+        f"detections, launches {n}")
+    return n, gpu_mod, cuts[1][0]
+
+
+def phase_int8_serve(cfg, rng, n_q1):
+    """int8 serving of yolox-s at full width, INT8_SIZE px: the table
+    calibrated on the CPU (INT8_CALIB_B frames) and used on both sides;
+    a table calibrated on the card against it; both modes for float32 and
+    bf16 modules (`int8_card_vs_cpu`). Returns (results, the table, the
+    card's bf16 module)."""
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+
+    calib = rng.integers(0, 256, (INT8_CALIB_B, INT8_SIZE, INT8_SIZE, 3),
+                         dtype=np.uint8)
+    cpu_mod = spread_scores(
+        YoloxModule.from_config(cfg, rng_seed=4321, device="cpu"), calib)
+    table = cpu_mod.calibrate_int8(calib)
+    gpu_mod = YoloxModule.from_config(cfg, rng_seed=4321)
+    gpu_mod.load_params(cpu_mod.state_dict())
+    card_table = gpu_mod.calibrate_int8(torch.from_numpy(calib).cuda())
+    table_err = max(float((card_table[k].cpu() - v).abs().max()
+                          / v.abs().max()) for k, v in table.items())
+    log(f"yolox-s table: {len(table)} entries; calibrated on the card it "
+        f"differs from the CPU's by {table_err:.3g} of an entry's largest")
+    if set(card_table) != set(table) or table_err > INT8_TABLE_TOL:
+        raise AssertionError("the card's calibration disagrees with the CPU")
+    frames = _frames(rng, INT8_B)
+    res = {"table_rel_err": table_err}
+    mods = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        pair = []
+        for device in ("cuda", "cpu"):
+            m = YoloxModule.from_config(cfg, rng_seed=4321, dtype=dtype,
+                                        device=device)
+            m.load_params(cpu_mod.state_dict())
+            pair.append(m)
+        key = str(dtype).split(".")[-1]
+        res[key] = int8_card_vs_cpu("yolox-s", *pair, table,
+                                    ("ladder", "hbm"), frames, n_q1, 0)
+        mods[key] = pair[0]
+    return res, table, mods["bfloat16"]
+
+
+def phase_int8_nano(cfg, rng, n_q1, n_q2):
+    """nano int8 HBM at NANO_SIZE px, B 1 and INT8_B, card against CPU
+    (Q2 once per depthwise conv a call). Returns (results, the table, the
+    card's module)."""
+    from yolox_tpu_torch import YoloxModule
+
+    frames = [rng.integers(0, 256, (NANO_SIZE, NANO_SIZE, 3), dtype=np.uint8)
+              for _ in range(INT8_B)]
+    cpu_mod = spread_scores(
+        YoloxModule.from_config(cfg, rng_seed=1234, device="cpu"),
+        np.stack(frames[:INT8_CALIB_B]))
+    table = cpu_mod.calibrate_int8(np.stack(frames[:INT8_CALIB_B]))
+    gpu_mod = YoloxModule.from_config(cfg, rng_seed=1234)
+    gpu_mod.load_params(cpu_mod.state_dict())
+    res = int8_card_vs_cpu("nano", gpu_mod, cpu_mod, table, ("hbm",), frames,
+                           n_q1, n_q2)
+    return res, table, gpu_mod
+
+
+def serve_time(module, b, reps, threshold, **kw):
+    """Median wall ms of `serve` on a host uint8 batch of B `b` (detections
+    copied to the host), after 3 warm-up calls; device ms per call by
+    kernel (torch.profiler), when it reaches the card."""
+    import torch
+
+    x = np.random.default_rng(b).integers(0, 256, (b, INT8_SIZE, INT8_SIZE,
+                                                   3), dtype=np.uint8)
+
+    def call():
+        dets, valid = module.serve(x, conf_thre=threshold, max_det=1024, **kw)
+        dets.cpu(), valid.cpu()
+
+    samples = []
+    for i in range(reps + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        if i >= 3:
+            samples.append(time.perf_counter() - t0)
+    med = float(np.median(samples))
+    t = {"median_ms": 1e3 * med, "img_per_s": b / med}
+    try:
+        dev_ms, top = device_time(call)
+    except Exception as e:  # the profiler may not reach the card
+        log(f"device breakdown: not measured ({e})")
+        return t, []
+    t.update(device_ms=dev_ms, device_busy=dev_ms / (1e3 * med))
+    return t, top
+
+
+def capture_int8_convs(module, x, threshold, **kw):
+    """The arguments of every Q1 and Q2 launch of one serve call."""
+    import torch
+
+    from yolox_tpu_torch.ops import quant
+
+    calls, real = [], (quant.int8_conv, quant.int8_dwconv)
+
+    def spy(dw):
+        def run(*args):
+            calls.append((dw, args))
+            return real[dw](*args)
+        return run
+
+    quant.int8_conv, quant.int8_dwconv = spy(0), spy(1)
+    try:
+        module.serve(x, conf_thre=threshold, max_det=1024, **kw)
+    finally:
+        quant.int8_conv, quant.int8_dwconv = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def _conv_key(dw, args):
+    x, w, _, _, k, stride = args[:6]
+    b, cin, h, wd = x.shape
+    cout = cin if dw else w.shape[0]
+    return (b, cin, cout, h, wd, k, stride, cin if dw else 1)
+
+
+def int8_conv_times(calls, depth_ms):
+    """Q1 (or Q2) over the launches of one serve call (`calls`): the
+    kernels' device ms (profiler, `depth_ms`) beside the sum of the
+    launches replayed back to back (`queued_ms`), the plain versions, the
+    bound and cuDNN's bf16 conv of each shape; and the same per launch at
+    the largest (by bound) and the most frequent shape, with
+    `torch._int_mm` over an im2col of the codes as a second yardstick."""
+    import collections
+
+    import torch
+    import torch.nn.functional as F
+
+    from yolox_tpu_torch.ops.int8_conv import (
+        int8_conv,
+        int8_conv_plain,
+        int8_dwconv,
+        int8_dwconv_plain,
+    )
+
+    def kernel(dw, args):
+        return (int8_dwconv if dw else int8_conv)(*args)
+
+    def plain(dw, args):
+        return (int8_dwconv_plain if dw else int8_conv_plain)(*args)
+
+    def library(dw, args):
+        """cuDNN's bf16 conv of the same shape on channels_last bf16."""
+        x, w, _, _, k, stride = args[:6]
+        xb = x.to(torch.bfloat16)
+        cin = x.shape[1]
+        cout = cin if dw else w.shape[0]
+        wb = torch.ones((cout, 1 if dw else cin, k, k), dtype=torch.bfloat16,
+                        device=x.device).contiguous(
+                            memory_format=torch.channels_last)
+        return lambda: F.conv2d(xb, wb, stride=stride, padding=(k - 1) // 2,
+                                groups=cin if dw else 1)
+
+    def bound(dw, args):
+        b, cin, cout, h, w, k, stride, g = _conv_key(dw, args)
+        out_bytes = 1 if args[8] is not None else (
+            2 if args[7] == torch.bfloat16 else 4)
+        return int8_conv_bound(b, h, w, cin, cout, k, stride, g, out_bytes)
+
+    libs = [library(dw, a) for dw, a in calls]
+
+    def replay():
+        for dw, a in calls:
+            kernel(dw, a)
+
+    def replay_library():
+        for f in libs:
+            f()
+
+    t = {"launches": len(calls), "ms": cuda_ms(replay, 3),
+         "device_ms": queued_ms(replay, 3), "profiler_device_ms": depth_ms,
+         "plain_ms": cuda_ms(lambda: [plain(dw, a) for dw, a in calls], 1,
+                             warmup=1),
+         "bound_ms": sum(bound(dw, a)[0] for dw, a in calls),
+         "library_ms": cuda_ms(replay_library, 3),
+         "library_device_ms": queued_ms(replay_library, 3)}
+    t["bound_by"] = collections.Counter(
+        bound(dw, a)[1] for dw, a in calls).most_common(1)[0][0]
+    count = collections.Counter(_conv_key(dw, a) for dw, a in calls)
+    first = {}
+    for dw, a in calls:
+        first.setdefault(_conv_key(dw, a), (dw, a))
+    largest = max(first.values(), key=lambda c: bound(*c)[0])
+    frequent = first[count.most_common(1)[0][0]]
+    for label, (dw, a) in (("largest", largest), ("most_frequent", frequent)):
+        lib = library(dw, a)
+        s = {"shape": list(_conv_key(dw, a)),
+             "count": count[_conv_key(dw, a)],
+             "ms": cuda_ms(lambda: kernel(dw, a), 20),
+             "device_ms": queued_ms(lambda: kernel(dw, a), 20),
+             "plain_ms": cuda_ms(lambda: plain(dw, a), 2, warmup=1),
+             "library_ms": cuda_ms(lib, 20),
+             "library_device_ms": queued_ms(lib, 20)}
+        s["bound_ms"], s["bound_by"] = bound(dw, a)
+        if not dw:
+            s["int_mm_ms"] = int_mm_ms(a)
+        t[label] = s
+    return t
+
+
+def int_mm_ms(args):
+    """Device ms of `torch._int_mm` on an im2col of one Q1 launch's codes
+    (M = B Ho Wo, K = k^2 Cin padded to 32, N = Cout), the im2col made
+    before the timing (in float16, which holds every int8, then cast);
+    None where `_int_mm` refuses the shape."""
+    import torch
+    import torch.nn.functional as F
+
+    x, w, _, _, k, stride = args[:6]
+    cols = F.unfold(x.half(), k, padding=(k - 1) // 2, stride=stride)
+    cols = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(torch.int8)
+    cols = F.pad(cols, (0, w.shape[1] - cols.shape[1])).contiguous()
+    wt = w.t()  # (Kp, Cout), column-major
+    try:
+        return queued_ms(lambda: torch._int_mm(cols, wt), 20)
+    except RuntimeError as e:
+        log(f"torch._int_mm refuses {tuple(cols.shape)} x {tuple(wt.shape)}: "
+            f"{str(e).splitlines()[0]}")
+        return None
+
+
+def int8_times(v3_mod, s_bf16, nano_mod, s_table, nano_table, threshold):
+    """Serve latency (B 1) and throughput (B INT8_TIME_B) of yolov3 in
+    float32 and bf16 and of yolox-s int8 (ladder and HBM, bf16 module);
+    Q1 over one B INT8_TIME_B ladder call and Q2 over one nano HBM call
+    (`int8_conv_times`)."""
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+
+    out = {"serve": {}}
+    v3_bf16 = YoloxModule.from_config(v3_mod.config, rng_seed=777,
+                                      dtype=torch.bfloat16)
+    v3_bf16.load_params(v3_mod.state_dict())
+    q1_dev = {}
+    for key, mod, kw in (("yolov3_float32", v3_mod, {}),
+                         ("yolov3_bfloat16", v3_bf16, {}),
+                         ("yolox_s_int8_ladder_bf16", s_bf16,
+                          {"int8_qtab": s_table}),
+                         ("yolox_s_int8_hbm_bf16", s_bf16,
+                          {"int8_hbm_qtab": s_table})):
+        for b, reps in ((1, 30), (INT8_TIME_B, 6)):
+            t, top = serve_time(mod, b, reps, threshold, **kw)
+            name = f"{key}_b{b}"
+            q1 = sum(v for k, v in top if "q1_kernel" in k)
+            if kw:
+                t["q1_device_ms"] = q1
+                q1_dev[name] = q1
+            out["serve"][name] = t
+            log(f"serve {name}: {t}; top kernels (ms per call) "
+                + json.dumps([(k[:50], round(v, 4)) for k, v in top[:6]]))
+    del v3_bf16
+    x = np.random.default_rng(5).integers(0, 256, (INT8_TIME_B, INT8_SIZE,
+                                                   INT8_SIZE, 3), np.uint8)
+    calls = capture_int8_convs(s_bf16, x, threshold, int8_qtab=s_table)
+    out["q1"] = int8_conv_times(
+        calls, q1_dev.get(f"yolox_s_int8_ladder_bf16_b{INT8_TIME_B}"))
+    log(f"Q1 over one B {INT8_TIME_B} ladder call: {out['q1']}")
+    del calls
+    xn = np.random.default_rng(6).integers(0, 256, (INT8_TIME_B, NANO_SIZE,
+                                                    NANO_SIZE, 3), np.uint8)
+    calls = [c for c in capture_int8_convs(nano_mod, xn, threshold,
+                                           int8_hbm_qtab=nano_table) if c[0]]
+    _, top = device_time(lambda: nano_mod.serve(
+        xn, conf_thre=threshold, max_det=1024, int8_hbm_qtab=nano_table))
+    out["q2"] = int8_conv_times(calls, sum(v for k, v in top
+                                           if "q2_kernel" in k))
+    log(f"Q2 over one nano B {INT8_TIME_B} HBM call: {out['q2']}")
+    return out
+
+
+def run_int8(cfg, rng, lines):
+    """Phase 11: Q1 / Q2 against their plain versions, yolov3, int8
+    serving of yolox-s (both modes, float32 and bf16) and nano (HBM), the
+    times. Returns the kernels-line entries of Q1 and Q2."""
+    from yolox_tpu_torch import YoloxConfig
+
+    t0 = time.perf_counter()
+    cfgs = {n: YoloxConfig.get_named_config(n)
+            for n in ("yolox_s", "yolov3", "yolox_nano")}
+    shapes, q1_err, q2_err = phase_int8_kernels(cfgs)
+    v3_launches, v3_mod, v3_thr = phase_yolov3(cfgs["yolov3"], rng)
+    n_q1 = sum(shapes["yolox_s"].values())
+    serve, s_table, s_bf16 = phase_int8_serve(cfg, rng, n_q1)
+    nano_q1 = sum(n for s, n in shapes["yolox_nano"].items() if s[-1] == 1)
+    nano_q2 = sum(n for s, n in shapes["yolox_nano"].items() if s[-1] > 1)
+    nano, nano_table, nano_mod = phase_int8_nano(cfgs["yolox_nano"], rng,
+                                                 nano_q1, nano_q2)
+    log(f"phase 11 checks: {time.perf_counter() - t0:.1f} s")
+    times = int8_times(v3_mod, s_bf16, nano_mod, s_table, nano_table, v3_thr)
+    lines.append({"int8": {"yolox_s": serve, "nano": nano,
+                           "yolov3_launches": v3_launches,
+                           "serve": times["serve"]}})
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    keys = ("ms", "device_ms", "profiler_device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms")
+    entries = []
+    for name, q, err, launches, note in (
+            ("int8_conv", times["q1"], q1_err,
+             sum(r[2]["int8_conv"] for d in ("float32", "bfloat16")
+                 for r in serve[d].values()),
+             f"sum over the launches of one B {INT8_TIME_B} yolox-s int8 "
+             f"ladder serve call, bf16 module, {INT8_SIZE} px"),
+            ("int8_dwconv", times["q2"], q2_err,
+             nano["hbm"][2]["int8_dwconv"],
+             f"sum over the launches of one B {INT8_TIME_B} nano int8 HBM "
+             f"serve call, {NANO_SIZE} px")):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "yolox_tpu_torch/csrc/int8_conv.cu",
+            # no Pallas kernel: JAX's int8 conv is lax.conv_general_dilated
+            # with int32 accumulation (ladder :127, HBM :230)
+            "replaces": "yolox_tpu/ops/quant.py:127",
+            "launches": launches, "max_abs_err": err,
+            **{k: q[k] for k in keys}, "unit": note,
+            "largest": q["largest"], "most_frequent": q["most_frequent"]})
+    return entries
+
+
 def main() -> int:
     try:
         import torch
@@ -2976,6 +3754,7 @@ def main() -> int:
     for entry, key in ((kernels[0], "stem"), (kernels[1], "nms")):
         entry["launches_eval"] = eval_launches[key]
         entry["launches_eval_bf16"] = eval_launches_bf16[key]
+    int8_kernels = run_int8(cfg, rng, lines)
     module = YoloxModule.from_config(cfg, rng_seed=4321)
     shapes = kernel_conv_shapes(module)
     log(f"{len(shapes)} 1x1 SiLU convs of yolox-s take K3 / K4: "
@@ -2992,6 +3771,7 @@ def main() -> int:
     del module
     kernels += run_train(cfg, rng, shapes, multiscale, lines)
     kernels += run_augment(cfg, rng, len(shapes), lines)
+    kernels += int8_kernels
     plain = next(line["train"] for line in lines if "train" in line)
     trainer_launches = run_trainer(
         cfg, len(shapes), plain["bfloat16_fused"].get("device_ms"), lines)

@@ -10,7 +10,10 @@ bf16 within one bf16 ulp, plus for the tensor-core path (uint8 and bf16
 images) 2^-19 of |scale| sum |x w| (`chip_smoke.stem_limit`: the tensor
 core truncates the sums it forms); K2 bit-equal keep masks at any K; K3 and K4 as
 `chip_smoke.check_conv_bwd` states them (relative to each output's sum
-of |terms|); K5, fused and single-pass, bit-equal to its plain versions; the card's
+of |terms|); K5, fused and single-pass, bit-equal to its plain versions;
+Q1 and Q2 (`-k int8`) as `chip_smoke.check_int8_conv` states them (sums
+exact, float32 within 4 ulp, bf16 one ulp, requantized codes off by 1 on at
+most 1e-4 of them); the card's
 augmentation
 against the CPU's on the same draws as `chip_smoke.augment_card_vs_cpu`
 states them.
@@ -21,14 +24,21 @@ import pytest
 import torch
 
 from chip_smoke import (
+    INT8_MAX_TOL,
+    INT8_RMS_TOL,
     affine_shifts,
     augment_card_vs_cpu,
     anchor_scores,
     assert_detections_match,
     check_conv_bwd,
+    check_int8_conv,
     conv_bwd_case,
     gap_threshold,
+    int8_conv_shapes,
+    int8_raw,
     nms_edge_cases,
+    q_inputs,
+    raw_close,
     random_boxes,
     shear_edge_shifts,
     spread_scores,
@@ -434,3 +444,92 @@ def test_prefetcher_copies_pinned_batches(cuda):
         assert gi.device.type == "cuda" and gt.device.type == "cuda"
         assert torch.equal(gi.cpu(), hi) and torch.equal(gt.cpu(), ht)
         assert ginfo == hinfo and gid == hid
+
+
+@pytest.mark.parametrize("case", [
+    (2, 64, 128, 40, 40, 3, 1, 0), (2, 64, 128, 41, 39, 3, 2, 0),
+    (1, 3, 32, 64, 62, 6, 2, 0), (2, 3, 32, 33, 35, 3, 1, 0),
+    (2, 16, 32, 21, 19, 1, 1, 0), (2, 48, 96, 17, 19, 3, 2, 0),
+    (1, 256, 512, 20, 20, 1, 1, 0), (1, 24, 40, 13, 11, 3, 1, 0),
+    (2, 64, 72, 9, 7, 3, 2, 1), (1, 32, 24, 5, 3, 3, 2, 7)])
+def test_int8_conv_q1_matches_plain(cuda, case):
+    """Q1 on odd and unaligned shapes (the last field is the codes' byte
+    offset: no 16-byte rows): float32, bf16 and requantized outputs and
+    the unit-scale sums against the plain version, at
+    `chip_smoke.check_int8_conv`'s tolerances, each launch repeated
+    bit-equal; the launch counter moves once per call."""
+    from yolox_tpu_torch.ops.int8_conv import int8_conv
+
+    b, cin, cout, h, w, k, stride, offset = case
+    gen = torch.Generator(device=cuda).manual_seed(sum(case))
+    x, w8, scale, bias, out_scale = q_inputs(gen, b, cin, cout, h, w, k,
+                                             offset=offset)
+    before = int8_conv.launches
+    for act in ("silu", "lrelu"):
+        check_int8_conv(x, w8, scale, bias, k, stride, out_scale, False, act)
+    assert int8_conv.launches == before + 16
+
+
+@pytest.mark.parametrize("case", [(2, 16, 52, 52, 1, 0), (2, 64, 27, 25, 2, 0),
+                                  (8, 128, 13, 13, 1, 0), (1, 24, 9, 7, 2, 3)])
+def test_int8_dwconv_q2_matches_plain(cuda, case):
+    """Q2 (depthwise 3x3) likewise."""
+    from yolox_tpu_torch.ops.int8_conv import int8_dwconv
+
+    b, c, h, w, stride, offset = case
+    gen = torch.Generator(device=cuda).manual_seed(sum(case))
+    x, w8, scale, bias, out_scale = q_inputs(gen, b, c, c, h, w, 3, True,
+                                             offset)
+    before = int8_dwconv.launches
+    check_int8_conv(x, w8, scale, bias, 3, stride, out_scale, True)
+    assert int8_dwconv.launches == before + 8
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from yolox_tpu_torch.ops.int8_conv import int8_conv, pack_weight
+
+    x = torch.zeros(1, 16, 8, 8, dtype=torch.int8, device=cuda)
+    w = pack_weight(torch.zeros(8, 16, 3, 3, dtype=torch.int8, device=cuda))
+    one, zero = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="int8"):
+        int8_conv(x.float(), w, one, zero, 3, 1, "silu")
+    with pytest.raises(ValueError, match="weights"):
+        int8_conv(x, w, one, zero, 1, 1, "silu")  # packed for k 3
+    with pytest.raises(ValueError, match="scale"):
+        int8_conv(x, w, one.double(), zero, 3, 1, "silu")
+    with pytest.raises(ValueError, match="output dtype"):
+        int8_conv(x, w, one, zero, 3, 1, "silu", torch.float16)
+    with pytest.raises(AttributeError):
+        int8_conv(x, w, one, zero, 3, 1, "gelu")
+
+
+def test_int8_serve_on_cuda_matches_cpu(cuda):
+    """A narrow yolox-s (width 0.125) served int8 on the card, both modes,
+    against the CPU port at `chip_smoke`'s card-against-CPU tolerances;
+    Q1 runs once per dense BaseConv (the ladder's stem included), K1 in
+    the HBM mode only."""
+    from yolox_tpu_torch import YoloxConfig, YoloxModule
+    from yolox_tpu_torch.ops.int8_conv import int8_conv
+    from yolox_tpu_torch.ops.stem import stem_conv_bn_act
+
+    cfg = YoloxConfig.get_named_config("yolox_s")
+    cfg.width = 0.125
+    x = np.random.default_rng(0).integers(0, 256, (2, 128, 128, 3),
+                                          dtype=np.uint8)
+    cpu_mod = spread_scores(YoloxModule.from_config(cfg, device="cpu"), x)
+    table = cpu_mod.calibrate_int8(x)
+    gpu_mod = YoloxModule.from_config(cfg, device=cuda)
+    gpu_mod.load_params(cpu_mod.state_dict())
+    n_q1 = sum(int8_conv_shapes(cpu_mod, 128, 2).values())
+    for mode in ("ladder", "hbm"):
+        rms, mx = raw_close(int8_raw(gpu_mod, x, mode, table),
+                            int8_raw(cpu_mod, x, mode, table))
+        assert rms <= INT8_RMS_TOL and mx <= INT8_MAX_TOL, (mode, rms, mx)
+        before = (int8_conv.launches, stem_conv_bn_act.launches)
+        kw = {"int8_qtab" if mode == "ladder" else "int8_hbm_qtab": table}
+        dets, valid = gpu_mod.serve(x, conf_thre=0.3, **kw)
+        torch.cuda.synchronize()
+        hbm = mode == "hbm"
+        assert (int8_conv.launches - before[0],
+                stem_conv_bn_act.launches - before[1]) == (n_q1 - hbm, hbm)
+        assert torch.isfinite(dets[valid]).all()

@@ -38,7 +38,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = REPO / "tests" / "golden"
 
 # (config, weight seed, input size, input seed): tests/test_golden_regression.py
-SPECS = {"nano": ("yolox_nano", 1234, 416, 99), "s": ("yolox_s", 4321, 640, 98)}
+SPECS = {"nano": ("yolox_nano", 1234, 416, 99), "s": ("yolox_s", 4321, 640, 98),
+         "yolov3": ("yolov3", 777, 640, 97)}
 
 
 def _module_and_input(name):
@@ -87,7 +88,8 @@ def test_dets_matcher_rejects_a_real_difference():
         assert_dets_match(d, v, want["dets_s2d_on"], v, tie=GOLDEN_TIE)
 
 
-@pytest.mark.parametrize("name,seed", [("yolox_nano", 1234), ("yolox_s", 4321)])
+@pytest.mark.parametrize("name,seed", [("yolox_nano", 1234), ("yolox_s", 4321),
+                                       ("yolov3", 777)])
 def test_seeded_init_equals_jax(name, seed):
     from yolox_tpu import YoloxConfig as JConfig
     from yolox_tpu import YoloxModule as JModule
@@ -282,8 +284,10 @@ def test_config_matches_jax():
         YoloxConfig.get_named_config("yolox-s")
     with pytest.raises(NotImplementedError, match="later slice"):
         a.get_data_loader(4, is_distributed=True)  # data-parallel
-    with pytest.raises(NotImplementedError):
-        YoloxConfig.get_named_config("yolov3").get_model(device="cpu")
+    # yolov3 builds (Darknet-53 + YoloFpn + an lrelu head) and runs
+    v3 = YoloxConfig.get_named_config("yolov3").get_model(device="cpu")
+    out = v3(np.zeros((1, 64, 64, 3), np.uint8))
+    assert out.shape == (1, 84, 85) and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("shape", [(480, 640), (640, 640), (333, 500)])

@@ -16,6 +16,10 @@ Mosaic/MixUp augmentation (`yolox_tpu_torch.data.device_augment_batch`,
 `core.make_augmented_train_step`) runs its shear passes as a fifth.
 Evaluation (`YoloxConfig.get_evaluator` / `YoloxConfig.eval`,
 `yolox_tpu_torch.evaluators`) runs COCO and VOC on the module's device.
+yolov3 (Darknet-53 + YoloFpn) serves like the CSPDarknet models, and int8
+post-training quantization (`YoloxModule.calibrate_int8`, `serve(...,
+int8_qtab=...)` or `int8_hbm_qtab=...`, `enable_int8`) runs its convs as
+two more hand-written kernels (`csrc/int8_conv.cu`).
 """
 
 from yolox_tpu_torch.version import __version__

@@ -379,11 +379,9 @@ class YoloxTiny(YoloxConfig):
 
 
 class Yolov3(YoloxConfig):
-    """Legacy yolov3 variant: Darknet-53 + YoloFpn + decoupled head, lrelu.
-
-    The config is registered so its fields match the JAX package; the
-    Darknet-53 / YoloFpn model itself is not ported yet.
-    """
+    """Legacy yolov3 variant: Darknet-53 + YoloFpn + decoupled head, lrelu
+    (`yolox_tpu/config.py:483-493`); the upstream checkpoint is
+    yolox_darknet.pth (`models/yolox.py::_WEIGHTS_ALIAS`)."""
 
     def __init__(self):
         super().__init__("yolov3")
@@ -392,7 +390,18 @@ class Yolov3(YoloxConfig):
         self.act = "lrelu"
 
     def get_model(self, rng_seed: int = 0, device=None):
-        _later("the yolov3 model (Darknet-53 + YoloFpn)")
+        """The seeded random yolov3 model on `device` (cuda unless
+        given)."""
+        from yolox_tpu_torch.models.head import YoloxHead
+        from yolox_tpu_torch.models.yolo_fpn import YoloFpn
+        from yolox_tpu_torch.models.yolox import YoloxModule, resolve_device
+
+        device = resolve_device(device)
+        head = YoloxHead(self.num_classes, self.width,
+                         in_channels=(128, 256, 512), act="lrelu")
+        module = YoloxModule(YoloFpn(), head, config=self)
+        module.init_params(rng_seed)
+        return module.to(device)
 
 
 class YoloxNano(YoloxConfig):

@@ -18,11 +18,20 @@ master weights: each conv casts its weight to the activation's dtype.
 Every block has an `init_params(rng)` that draws its random weights from a
 numpy Generator in the same order and with the same formulas as the JAX
 package's `init`, so a seed gives the same weights in both packages.
+
+int8 PTQ serving (`ops/quant.py`): a `YoloxModule` hands its blocks one
+`Int8State` (`qstate`) and their module names (`qpath`, the calibration
+table's keys). While its mode is set, eval forwards calibrate
+("calib": BaseConv input abs-maxes, per-channel `.out` / `.addout`
+entries), run the per-block ladder ("ladder") or keep activations int8
+between blocks ("hbm"), as the JAX package's `Ctx.calib_sink`,
+`int8_qtab` and `int8_hbm_qtab` do.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -30,6 +39,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from yolox_tpu_torch.ops import conv_bwd
+from yolox_tpu_torch.ops import quant
+from yolox_tpu_torch.ops.quant import QTensor
 from yolox_tpu_torch.ops.stem import stem_conv_bn_act
 
 BN_EPS = 1e-3
@@ -108,6 +119,68 @@ def _affine(z, gamma, beta, mean, var):
     return z * conv_bwd.per_channel(scale) + conv_bwd.per_channel(bias)
 
 
+class Int8State:
+    """The int8 mode a YoloxModule's blocks share: `mode` None (float),
+    "calib", "ladder" or "hbm"; the calibration `table`; the calibration
+    `sink` and `percentile`. Activation scales derived from the table are
+    cached while the same table object stays in use."""
+
+    def __init__(self):
+        self.mode: Optional[str] = None
+        self.table: Optional[dict] = None
+        self.sink: Optional[dict] = None
+        self.percentile: Optional[float] = None
+        self._scales: dict = {}
+        self._scales_of = None
+
+    def scale(self, key: str, device) -> torch.Tensor:
+        """amax / 127 of table entry `key` on `device` (per-tensor or
+        per-channel, as the entry is)."""
+        if self._scales_of is not self.table:
+            self._scales, self._scales_of = {}, self.table
+        s = self._scales.get((key, device))
+        if s is None:
+            s = self._scales[(key, device)] = quant.act_scale(
+                self.table[key], device)
+        return s
+
+    def record(self, key: str, x) -> None:
+        self.sink[key] = quant.calib_amax(x, self.percentile)
+
+    def record_channels(self, key: str, y) -> None:
+        self.sink[key] = quant.calib_channel_amax(y, self.percentile)
+
+
+class Int8Hooks:
+    """What a block with int8 hooks carries: the module's `Int8State` and
+    its own name there (set by `YoloxModule`), and a cache of its
+    quantized weights."""
+
+    qstate: Optional[Int8State] = None
+    qpath: str = ""
+    _q_cache = None
+
+    def int8_mode(self) -> Optional[str]:
+        st = self.qstate
+        if st is None or st.mode is None:
+            return None
+        if self.training:
+            raise RuntimeError("int8 PTQ is a serving/eval-only path")
+        return st.mode
+
+    def cached(self, params, make):
+        """make(), reused while the mode, the table object and every
+        tensor of `params` (address, in-place version, dtype) stay the
+        same; `YoloxModule.load_params` / `cast_params` also drop it."""
+        st = self.qstate
+        key = (st.mode, id(st.table)) + tuple(
+            (t.data_ptr(), t._version, t.dtype, t.device) for t in params)
+        c = self._q_cache
+        if c is None or c[0] != key or c[1] is not st.table:
+            c = self._q_cache = (key, st.table, make())
+        return c[2]
+
+
 @torch.no_grad()
 def update_running_stats(bn: nn.BatchNorm2d, mean, var, n: int) -> None:
     """torch's train-mode update: momentum 0.03, unbiased running variance."""
@@ -118,8 +191,13 @@ def update_running_stats(bn: nn.BatchNorm2d, mean, var, n: int) -> None:
     bn.num_batches_tracked.add_(1)
 
 
-class BaseConv(nn.Module):
-    """Conv2d -> BatchNorm -> activation (`network_blocks.py:27-52`)."""
+class BaseConv(Int8Hooks, nn.Module):
+    """Conv2d -> BatchNorm -> activation (`network_blocks.py:27-52`).
+
+    `defer_requant_hbm`: in the HBM mode this conv's float32 output goes
+    to a residual add that requantizes (set by Bottleneck / ResLayer)."""
+
+    defer_requant_hbm = False
 
     def __init__(self, cin, cout, ksize, stride, groups=1, act="silu"):
         super().__init__()
@@ -139,9 +217,51 @@ class BaseConv(nn.Module):
         _reset_bn(self.bn)
 
     def forward(self, x):
+        mode = self.int8_mode()
+        if mode is not None:
+            return self._forward_int8(x, mode)
         if self.training:
             return self._forward_train(x)
         return self.act(self.bn(self.conv(x)))
+
+    def _qparams(self):
+        bn = self.bn
+        return {"conv": {"weight": self.conv.weight},
+                "bn": {"weight": bn.weight, "bias": bn.bias,
+                       "running_mean": bn.running_mean,
+                       "running_var": bn.running_var}}
+
+    def _param_tensors(self):
+        bn = self.bn
+        return (self.conv.weight, bn.weight, bn.bias, bn.running_mean,
+                bn.running_var)
+
+    def _forward_int8(self, x, mode):
+        st, path = self.qstate, self.qpath
+        stride, groups = self.conv.stride[0], self.conv.groups
+        if mode == "calib":
+            st.record(path, x)
+            y = self.act(self.bn(self.conv(x)))
+            st.record_channels(f"{path}.out", y)
+            return y
+        if mode == "ladder":
+            qc = self.cached(self._param_tensors(), lambda: quant.prepare_ladder(
+                self._qparams(), st.table[path], groups))
+            return quant.conv_int8(quant.quantize(x, qc.sx), qc, stride,
+                                   self.act_name, x.dtype)
+        # hbm: a producer requantizes at its calibrated output amax, unless
+        # a residual add after it does
+        out_scale = None if self.defer_requant_hbm else st.scale(
+            f"{path}.out", self.conv.weight.device)
+        if isinstance(x, QTensor):
+            qc = self.cached(self._param_tensors(), lambda: quant.prepare_hbm(
+                self._qparams(), x.scale, groups))
+            y = quant.conv_int8(x.codes, qc, stride, self.act_name,
+                                torch.float32, out_scale)
+            return y if out_scale is None else QTensor(y, out_scale)
+        # an entry conv (a float image in): the float block, then requant
+        y = self.act(self.bn(self.conv(x)))
+        return y if out_scale is None else quant.requant_at(y, out_scale)
 
     def _forward_train(self, x):
         c, bn = self.conv, self.bn
@@ -187,7 +307,22 @@ class DWConv(nn.Module):
         return self.pconv(self.dconv(x))
 
 
-class Bottleneck(nn.Module):
+def _residual(block, y, x):
+    """y + x for a residual block; in the HBM mode y is the deferred
+    float32 output and x a QTensor, requantized together at the block's
+    `.addout` amax; calibration records that amax."""
+    mode = block.int8_mode()
+    if mode == "hbm":
+        st = block.qstate
+        return quant.requant_at(y + quant.dequant(x), st.scale(
+            f"{block.qpath}.addout", y.device))
+    out = x + y
+    if mode == "calib":
+        block.qstate.record_channels(f"{block.qpath}.addout", out)
+    return out
+
+
+class Bottleneck(Int8Hooks, nn.Module):
     """Standard bottleneck (`network_blocks.py:77-99`)."""
 
     def __init__(self, cin, cout, shortcut=True, expansion=0.5,
@@ -198,16 +333,36 @@ class Bottleneck(nn.Module):
         self.conv1 = BaseConv(cin, hidden, 1, 1, act=act)
         self.conv2 = Conv(hidden, cout, 3, stride=1, act=act)
         self.use_add = shortcut and cin == cout
+        if self.use_add:
+            (self.conv2.pconv if depthwise else self.conv2
+             ).defer_requant_hbm = True
 
     def init_params(self, rng):
         init_children(rng, self.conv1, self.conv2)
 
     def forward(self, x):
         y = self.conv2(self.conv1(x))
-        return y + x if self.use_add else y
+        return _residual(self, y, x) if self.use_add else y
 
 
-class SPPBottleneck(nn.Module):
+class ResLayer(Int8Hooks, nn.Module):
+    """YOLOv3 residual layer (`network_blocks.py:102-117`)."""
+
+    def __init__(self, cin: int):
+        super().__init__()
+        mid = cin // 2
+        self.layer1 = BaseConv(cin, mid, 1, 1, act="lrelu")
+        self.layer2 = BaseConv(mid, cin, 3, 1, act="lrelu")
+        self.layer2.defer_requant_hbm = True
+
+    def init_params(self, rng):
+        init_children(rng, self.layer1, self.layer2)
+
+    def forward(self, x):
+        return _residual(self, self.layer2(self.layer1(x)), x)
+
+
+class SPPBottleneck(Int8Hooks, nn.Module):
     """Spatial pyramid pooling, kernels (5, 9, 13) (`network_blocks.py:120-142`)."""
 
     def __init__(self, cin, cout, kernel_sizes=(5, 9, 13), activation="silu"):
@@ -223,11 +378,14 @@ class SPPBottleneck(nn.Module):
 
     def forward(self, x):
         x = self.conv1(x)
+        if self.int8_mode() == "hbm":  # pool the codes, concat codes+scales
+            pools = [quant.q_max_pool_same(x, k) for k in self.kernel_sizes]
+            return self.conv2(quant.q_concat([x] + pools))
         pools = [max_pool_same(x, k) for k in self.kernel_sizes]
         return self.conv2(torch.cat([x] + pools, dim=1))
 
 
-class CspLayer(nn.Module):
+class CspLayer(Int8Hooks, nn.Module):
     """C3: CSP bottleneck with 3 convs (`network_blocks.py:145-183`)."""
 
     def __init__(self, cin, cout, n=1, shortcut=True, expansion=0.5,
@@ -247,7 +405,7 @@ class CspLayer(nn.Module):
     def forward(self, x):
         x1 = self.m(self.conv1(x))
         x2 = self.conv2(x)
-        return self.conv3(torch.cat([x1, x2], dim=1))
+        return self.conv3(cat(self, [x1, x2]))
 
 
 def fold_focus_weight(w: torch.Tensor) -> torch.Tensor:
@@ -267,7 +425,7 @@ def fold_focus_weight(w: torch.Tensor) -> torch.Tensor:
     return wb
 
 
-class Focus(nn.Module):
+class Focus(Int8Hooks, nn.Module):
     """Space-to-depth 2x2 then conv (`network_blocks.py:186-208`).
 
     Takes the NHWC image (B, H, W, 3) and returns the NCHW activation
@@ -279,6 +437,11 @@ class Focus(nn.Module):
     plain differentiable path instead: space-to-depth in the quadrant
     order TL, BL, TR, BR, then the BaseConv with batch statistics, on a
     float image. The checkpoint layout is untouched.
+
+    int8: the ladder quantizes the image and runs the folded 6x6 stride-2
+    conv through Q1 (K1 does not run); the HBM mode keeps the stem float
+    (K1) and requantizes its output. Table keys: `<path>.conv` (the
+    image's abs-max) and `<path>.conv.out`.
     """
 
     def __init__(self, cin, cout, ksize=1, stride=1, act="silu"):
@@ -297,10 +460,55 @@ class Focus(nn.Module):
             return self.conv(torch.cat([x[..., ::2, ::2], x[..., 1::2, ::2],
                                         x[..., ::2, 1::2], x[..., 1::2, 1::2]],
                                        dim=1))
+        mode = self.int8_mode()
+        if mode == "ladder":
+            return self._forward_ladder(x)
+        if mode == "calib":
+            self.qstate.record(f"{self.qpath}.conv", x)
         scale, bias = self.conv.bn_fold()
         wb = fold_focus_weight(self.conv.conv.weight.float()).contiguous()
-        return stem_conv_bn_act(x, wb, scale, bias, self.act_name,
-                                out_dtype=self.conv.conv.weight.dtype)
+        y = stem_conv_bn_act(x, wb, scale, bias, self.act_name,
+                             out_dtype=self.conv.conv.weight.dtype)
+        if mode == "calib":
+            self.qstate.record_channels(f"{self.qpath}.conv.out", y)
+        elif mode == "hbm":  # the stem stays float; its output goes int8
+            q = quant.requant_at(y, self.qstate.scale(
+                f"{self.qpath}.conv.out", y.device))
+            return QTensor(q.codes.contiguous(
+                memory_format=torch.channels_last), q.scale)
+        return y
+
+    def _forward_ladder(self, x):
+        """The folded 2k x 2k stride-2 stem conv quantized like any
+        BaseConv ((2k - 1) // 2 == k - 1: the same padding) on the
+        quantized (B, H, W, 3) image."""
+        c = self.conv
+
+        def make():
+            p = c._qparams()
+            p["conv"] = {"weight": fold_focus_weight(c.conv.weight.float())}
+            return quant.prepare_ladder(p, self.qstate.table[
+                f"{self.qpath}.conv"], 1)
+
+        qc = self.cached(c._param_tensors(), make)
+        xq = quant.quantize(x, qc.sx).permute(0, 3, 1, 2)
+        return quant.conv_int8(xq, qc, 2, self.act_name, x.dtype)
+
+
+def cat(block, xs):
+    """Channel concat of float activations, or of QTensors in a block
+    running the HBM mode."""
+    if block.int8_mode() == "hbm":
+        return quant.q_concat(xs)
+    return torch.cat(xs, dim=1)
+
+
+def upsample(block, x):
+    """Nearest 2x upsampling of a float activation, or of a QTensor in a
+    block running the HBM mode."""
+    if block.int8_mode() == "hbm":
+        return quant.q_upsample_nearest_2x(x)
+    return upsample_nearest_2x(x)
 
 
 def max_pool_same(x, ksize: int):

@@ -20,11 +20,13 @@ import torch.nn.functional as F
 from yolox_tpu_torch.models.blocks import (
     BaseConv,
     DWConv,
+    Int8Hooks,
     _set,
     init_children,
     init_conv_bias,
     init_conv_kernel,
 )
+from yolox_tpu_torch.ops import quant
 
 
 def exact_int_bound(dtype: torch.dtype) -> int:
@@ -46,9 +48,11 @@ def level_grid(hsize: int, wsize: int, dtype=torch.float32, device=None):
     return torch.stack((xv, yv), dim=2).reshape(hsize * wsize, 2).to(dtype)
 
 
-class _PredConv(nn.Conv2d):
+class _PredConv(Int8Hooks, nn.Conv2d):
     """Plain 1x1 Conv2d with bias; `bias_fill` is the reference bias prior
-    -log((1 - p) / p), p = 1e-2, which draws nothing from the generator."""
+    -log((1 - p) / p), p = 1e-2, which draws nothing from the generator.
+    In the int8 HBM mode it reads the codes (`quant.pred_conv_hbm`: the
+    input scale folded into the weight, the conv in bf16, not quantized)."""
 
     def __init__(self, cin, cout, bias_fill: Optional[float] = None):
         super().__init__(cin, cout, 1, 1, 0, bias=True)
@@ -65,6 +69,8 @@ class _PredConv(nn.Conv2d):
         _set(self.bias, b)
 
     def forward(self, x):
+        if self.int8_mode() == "hbm" and isinstance(x, quant.QTensor):
+            return quant.pred_conv_hbm(x, self.weight, self.bias)
         # the weight takes the activation's dtype (f32 master weights of a
         # bf16 train step; a no-op when they agree)
         return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype))

@@ -9,20 +9,21 @@ from __future__ import annotations
 
 from typing import Sequence
 
-import torch
 import torch.nn as nn
 
 from yolox_tpu_torch.models.blocks import (
     BaseConv,
     CspLayer,
     DWConv,
+    Int8Hooks,
+    cat,
     init_children,
-    upsample_nearest_2x,
+    upsample,
 )
 from yolox_tpu_torch.models.darknet import CspDarknet
 
 
-class YoloPafpn(nn.Module):
+class YoloPafpn(Int8Hooks, nn.Module):
     def __init__(
         self,
         depth: float = 1.0,
@@ -64,17 +65,18 @@ class YoloPafpn(nn.Module):
         out_features = self.backbone(x)
         x2, x1, x0 = [out_features[f] for f in self.in_features]
 
+        # in the HBM mode upsample / cat act on QTensor codes and scales
         fpn_out0 = self.lateral_conv0(x0)
-        f_out0 = torch.cat([upsample_nearest_2x(fpn_out0), x1], dim=1)
+        f_out0 = cat(self, [upsample(self, fpn_out0), x1])
         f_out0 = self.C3_p4(f_out0)
 
         fpn_out1 = self.reduce_conv1(f_out0)
-        f_out1 = torch.cat([upsample_nearest_2x(fpn_out1), x2], dim=1)
+        f_out1 = cat(self, [upsample(self, fpn_out1), x2])
         pan_out2 = self.C3_p3(f_out1)
 
-        p_out1 = torch.cat([self.bu_conv2(pan_out2), fpn_out1], dim=1)
+        p_out1 = cat(self, [self.bu_conv2(pan_out2), fpn_out1])
         pan_out1 = self.C3_n3(p_out1)
 
-        p_out0 = torch.cat([self.bu_conv1(pan_out1), fpn_out0], dim=1)
+        p_out0 = cat(self, [self.bu_conv1(pan_out1), fpn_out0])
         pan_out0 = self.C3_n4(p_out0)
         return (pan_out2, pan_out1, pan_out0)

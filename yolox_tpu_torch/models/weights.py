@@ -6,8 +6,9 @@ an upstream `.pth` loads with `load_state_dict(strict=True)`. The JAX
 package keeps the same keys as a nested dict with HWIO conv kernels;
 `state_dict_from_jax` and `state_dict_to_jax` convert between the two,
 and `train_state_from_jax` / `train_state_to_jax` carry a whole training
-state (parameters, BN statistics, SGD momentum, EMA, counters), all
-without importing either JAX or the JAX package.
+state (parameters, BN statistics, SGD momentum, EMA, counters), and
+`qtab_from_jax` an int8 calibration table, all without importing either
+JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             arr = arr.astype(_float_dtype(arr))
             if arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        out[key] = torch.from_numpy(np.array(arr))  # 0-d stays 0-d
     return out
 
 
@@ -153,6 +154,17 @@ def train_state_to_jax(state) -> Dict[str, Any]:
         out["ema"] = state_dict_to_jax(state.ema.ema.state_dict())
         out["ema_updates"] = np.int32(state.ema.updates)
     return out
+
+
+def qtab_from_jax(table: Dict[str, Any], device=None
+                  ) -> Dict[str, torch.Tensor]:
+    """The JAX package's int8 calibration table (`calibrate_int8`: keys
+    the BaseConv parameter paths plus `.out` / `.addout` / `.conv` /
+    `.conv.out`, values numpy or any array `np.asarray` takes) -> the
+    port's: the same keys, which are the port's module names, with float32
+    tensors on `device`."""
+    return {k: torch.as_tensor(np.array(v, np.float32), device=device)
+            for k, v in table.items()}
 
 
 def load_pth_state_dict(path: str | os.PathLike) -> Dict[str, torch.Tensor]:

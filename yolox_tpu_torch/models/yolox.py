@@ -10,6 +10,12 @@ kernels K1 and K2, the other convolutions go to cuDNN, and nothing in
 mode `forward_train` is the training forward (`core/train_step.py` drives
 it); `forward` and `serve` are eval-mode paths.
 
+int8 PTQ serving (`ops/quant.py`): `calibrate_int8` collects the table,
+`serve(..., int8_qtab=...)` runs the per-block ladder and
+`serve(..., int8_hbm_qtab=...)` the int8-in-HBM mode, their convs on the
+int8 kernels Q1 (dense) and Q2 (depthwise); `enable_int8` makes `forward`
+run one of them, so the evaluators measure the quantized model.
+
 Entry points place the module on `cuda` unless the caller passes
 `device="cpu"`; with no CUDA device and no device asked for they raise.
 The package never changes PyTorch's global flags: a caller comparing
@@ -19,6 +25,7 @@ float32 results with a reference turns TF32 off itself
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import urllib.request
@@ -30,12 +37,13 @@ import torch
 import torch.nn as nn
 
 from yolox_tpu_torch.config import YoloxConfig
-from yolox_tpu_torch.models.blocks import BaseConv
+from yolox_tpu_torch.models.blocks import BaseConv, Focus, Int8Hooks, Int8State
 from yolox_tpu_torch.models.head import YoloxHead
 from yolox_tpu_torch.models.pafpn import YoloPafpn
 from yolox_tpu_torch.models.processor import Detections, YoloxProcessor
 from yolox_tpu_torch.models.weights import load_pth_state_dict, nested_to_flat
 from yolox_tpu_torch.ops.nms import postprocess_fused_levels
+from yolox_tpu_torch.ops.quant import merge_amax
 
 _WEIGHTS_URL = (
     "https://github.com/Megvii-BaseDetection/YOLOX/releases/download/"
@@ -68,6 +76,10 @@ class Yolox:
     def __init__(self, module: "YoloxModule", processor: YoloxProcessor):
         self.module = module
         self.processor = processor
+        # a `YoloxModule.calibrate_int8` table serves int8 PTQ: `int8_qtab`
+        # the per-block ladder, `int8_hbm_qtab` the int8-in-HBM mode
+        self.int8_qtab: Optional[dict] = None
+        self.int8_hbm_qtab: Optional[dict] = None
 
     @classmethod
     def from_pretrained(cls, pretrained_model_name_or_path, config=None,
@@ -101,7 +113,8 @@ class Yolox:
                 [batch, np.zeros((padded - n,) + batch.shape[1:], batch.dtype)])
         dets, valid = self.module.serve(
             batch, conf_thre=threshold,
-            nms_thre=self.processor.config.nmsthre, max_det=1024)
+            nms_thre=self.processor.config.nmsthre, max_det=1024,
+            int8_qtab=self.int8_qtab, int8_hbm_qtab=self.int8_hbm_qtab)
         return images, dets, valid, n
 
     def _fetch(self, pending) -> List[Detections]:
@@ -147,15 +160,24 @@ class Yolox:
 
 
 class YoloxModule(nn.Module):
-    """The network: PAFPN backbone + decoupled head. Built in eval mode."""
+    """The network: a PAFPN (or YoloFpn) backbone + decoupled head. Built
+    in eval mode."""
 
-    def __init__(self, backbone: Optional[YoloPafpn] = None,
+    def __init__(self, backbone: Optional[nn.Module] = None,
                  head: Optional[YoloxHead] = None,
                  config: Optional[YoloxConfig] = None):
         super().__init__()
         self.backbone = backbone if backbone is not None else YoloPafpn()
         self.head = head if head is not None else YoloxHead(80)
         self.config = config
+        # K1 reads uint8 images; a 3x3 BaseConv stem (Darknet) takes floats
+        self._focus_stem = any(isinstance(m, Focus)
+                               for m in self.backbone.modules())
+        self.int8_state = Int8State()
+        self._int8_enabled = None  # (mode, table) from enable_int8
+        for name, m in self.named_modules():
+            if isinstance(m, Int8Hooks):
+                m.qstate, m.qpath = self.int8_state, name
         self.eval()
 
     # ---------------- construction ----------------
@@ -192,7 +214,14 @@ class YoloxModule(nn.Module):
         bfloat16. Returns self."""
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {_DTYPES}, got {dtype}")
+        self.drop_int8_cache()
         return self.to(dtype)
+
+    def drop_int8_cache(self) -> None:
+        """Forget every block's quantized weights (rebuilt on next use)."""
+        for m in self.modules():
+            if isinstance(m, Int8Hooks):
+                m._q_cache = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -204,11 +233,12 @@ class YoloxModule(nn.Module):
 
     # ---------------- forward ----------------
 
-    def _image_batch(self, x) -> torch.Tensor:
+    def _image_batch(self, x, mode=None) -> torch.Tensor:
         """(B, H, W, 3) or (H, W, 3) image(s), NHWC or NCHW, numpy or
         tensor -> a contiguous NHWC tensor on the module's device: uint8
-        stays uint8 (the stem kernel reads it), floats take the module's
-        dtype."""
+        stays uint8 where the stem kernel K1 reads it (a Focus stem, in
+        float or int8 `mode` "hbm"), everything else takes the module's
+        dtype, as the JAX package casts every image."""
         if self.training:
             raise RuntimeError("forward and serve are eval-mode paths; call "
                                ".eval() first (forward_train trains)")
@@ -218,15 +248,30 @@ class YoloxModule(nn.Module):
         if x.shape[1] <= 4 and x.shape[3] > 4:  # NCHW -> NHWC
             x = x.permute(0, 2, 3, 1)
         x = x.to(self.device)
-        if x.dtype != torch.uint8:
+        if x.dtype != torch.uint8 or not self._focus_stem \
+                or mode not in (None, "hbm"):
             x = x.to(self.dtype)
         return x.contiguous()
 
+    @contextlib.contextmanager
+    def _int8_mode(self, mode, table=None, percentile=None):
+        """Run the blocks in int8 `mode` (None: float) within the block."""
+        st = self.int8_state
+        saved = (st.mode, st.table, st.percentile)
+        st.mode, st.table, st.percentile = mode, table, percentile
+        try:
+            yield st
+        finally:
+            st.mode, st.table, st.percentile = saved
+
     @torch.inference_mode()
     def forward(self, x):
-        """Eval forward: decoded (B, n_anchors, 5 + num_classes) float32."""
-        fpn_outs = self.backbone(self._image_batch(x))
-        return self.head(fpn_outs).float()
+        """Eval forward: decoded (B, n_anchors, 5 + num_classes) float32;
+        int8 after `enable_int8`."""
+        mode, table = self._int8_enabled or (None, None)
+        with self._int8_mode(mode, table):
+            fpn_outs = self.backbone(self._image_batch(x, mode))
+            return self.head(fpn_outs).float()
 
     def forward_train(self, x, fused_bwd: bool = False):
         """Train-mode forward (the JAX package's `apply_train`): x is the
@@ -244,16 +289,69 @@ class YoloxModule(nn.Module):
 
     @torch.inference_mode()
     def serve(self, x, conf_thre: float = 0.5, nms_thre: float = 0.65,
-              class_agnostic: bool = False, max_det: int = 256):
+              class_agnostic: bool = False, max_det: int = 256,
+              int8_qtab: Optional[dict] = None,
+              int8_hbm_qtab: Optional[dict] = None):
         """Fused serving step: forward + top-k select + f32 decode of the
         selected candidates + NMS. x: (B, H, W, 3) uint8 or float NHWC.
         Returns (detections (B, max_det, 7), valid (B, max_det)) on the
-        module's device, rows (x1, y1, x2, y2, obj, cls_conf, cls_idx)."""
-        fpn_outs = self.backbone(self._image_batch(x))
-        outs, grids, strides = self.head.forward_raw_levels(fpn_outs)
+        module's device, rows (x1, y1, x2, y2, obj, cls_conf, cls_idx).
+
+        `int8_qtab`: a `calibrate_int8` table; every conv+BN+act block runs
+        quantize -> int8 conv -> dequant (the per-block ladder).
+        `int8_hbm_qtab` (the same kind of table): activations cross blocks
+        as int8 codes + per-channel scales, producers requantize in their
+        conv's epilogue (the int8-in-HBM mode). Only this call's
+        arguments decide the mode, as in the JAX package."""
+        if int8_hbm_qtab is not None:
+            mode, table = "hbm", int8_hbm_qtab
+        elif int8_qtab is not None:
+            mode, table = "ladder", int8_qtab
+        else:
+            mode, table = None, None
+        with self._int8_mode(mode, table):
+            fpn_outs = self.backbone(self._image_batch(x, mode))
+            outs, grids, strides = self.head.forward_raw_levels(fpn_outs)
         return postprocess_fused_levels(
             outs, grids, strides, self.head.num_classes, conf_thre,
             nms_thre, class_agnostic, max_det)
+
+    @torch.inference_mode()
+    def calibrate_int8(self, batches, percentile: Optional[float] = None
+                       ) -> dict:
+        """The int8 activation-scale table over calibration data.
+
+        `batches`: one (B, H, W, 3) array or tensor (NCHW is transposed,
+        as in `forward`) or a list of them. Runs the eval forward with a
+        calibration sink: each BaseConv records its input's abs-max (or,
+        with `percentile`, e.g. 99.99, that percentile of |input|) under
+        its module name and its output's per-channel one under
+        `<name>.out`, each residual add `<name>.addout`, the Focus stem
+        `<stem>.conv` and `<stem>.conv.out`; batches merge by elementwise
+        max. Returns {key: float32 tensor} on the module's device, for
+        `serve(int8_qtab=...)`, `serve(int8_hbm_qtab=...)` and
+        `enable_int8`."""
+        if isinstance(batches, (np.ndarray, torch.Tensor)):
+            batches = [batches]
+        table: dict = {}
+        for x in batches:
+            x = self._image_batch(x, "calib")
+            with self._int8_mode("calib", None, percentile) as st:
+                st.sink = {}
+                try:
+                    self.head.forward_raw_levels(self.backbone(x))
+                    new = st.sink
+                finally:
+                    st.sink = None
+            table = merge_amax(table, new)
+        return table
+
+    def enable_int8(self, qtab: dict, hbm: bool = False) -> None:
+        """From now on `forward` (and so `__call__` and the evaluators'
+        inference) runs int8 PTQ at `qtab`: the per-block ladder, or with
+        `hbm` the int8-in-HBM mode. The weights are read at call time, so
+        a later `load_params` takes effect. Decode stays float32."""
+        self._int8_enabled = ("hbm" if hbm else "ladder", qtab)
 
     # ---------------- pretrained loading ----------------
 
@@ -293,6 +391,7 @@ class YoloxModule(nn.Module):
                     f"mismatched={mismatched[:8]}")
         self.load_state_dict({k: torch.as_tensor(v) for k, v in flat.items()},
                              strict=strict)
+        self.drop_int8_cache()
 
     @classmethod
     def _cached_pretrained_weights(cls, model_id: str) -> str:

@@ -28,12 +28,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("stem", "nms", "conv_bwd", "warp")
+KERNELS = ("stem", "nms", "conv_bwd", "warp", "int8_conv")
 
 # No --use_fast_math: the NMS kernel's IoU and the shear's lerp must round
-# exactly like their PyTorch plain versions, and the stem's epilogue and
-# the conv backward's float32 one keep IEEE expf (its bf16 one takes the
-# SFU's, see csrc/conv_bwd.cu).
+# exactly like their PyTorch plain versions, the stem's epilogue and the
+# conv backward's float32 one keep IEEE expf (its bf16 one takes the
+# SFU's, see csrc/conv_bwd.cu), and the int8 convs' epilogue its IEEE
+# divide and float64 exp.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -52,6 +53,10 @@ SIGNATURES = {
     "warp": {"yolox_shear_x": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
              "yolox_shear_xy": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _P]},
+    # Q1 / Q2: (x, w, scale, bias, out_scale, out, out_kind, B, H, W, Cin,
+    # [Cout,] k, stride, act, [vec,] stream)
+    "int8_conv": {"yolox_int8_conv": [_P] * 6 + [_I] * 10 + [_P],
+                  "yolox_int8_dwconv": [_P] * 6 + [_I] * 8 + [_P]},
 }
 
 _lock = threading.Lock()
