@@ -3149,20 +3149,35 @@ def check_int8_conv(x, w, scale, bias, k, stride, out_scale, depthwise,
 
 
 # edge cases beside the models' shapes: (B, Cin, Cout, H, W, k, stride,
-# groups, byte offset of the codes)
+# groups, byte offset of the codes). Q1's tiles: M a multiple of neither
+# BM 64 nor 128 (429 pixels); Cout 24 / 40 / 72 padded to an N tile, 264
+# in two; K just under and over a k tile (112 and 144 against 128, 80
+# against 64); the 3-channel stem at odd W; B 1 at 20x20; unaligned codes
+# (the window patch); Cout 5 (stores of one output). Q2's: channel
+# groups cut by C (24, 40, 72), M odd, B 1 at 20x20, unaligned codes at
+# stride 2.
 Q1_EDGE = ((2, 3, 32, 33, 35, 3, 1, 1, 0), (1, 3, 16, 30, 46, 6, 2, 1, 0),
            (2, 16, 32, 21, 19, 1, 1, 1, 0), (2, 16, 48, 17, 23, 3, 2, 1, 0),
            (2, 24, 40, 13, 11, 3, 2, 1, 0), (3, 64, 72, 9, 7, 3, 2, 1, 0),
-           (2, 64, 128, 41, 39, 3, 2, 1, 1), (1, 48, 24, 15, 13, 1, 1, 1, 3))
+           (2, 64, 128, 41, 39, 3, 2, 1, 1), (1, 48, 24, 15, 13, 1, 1, 1, 3),
+           (3, 32, 64, 11, 13, 3, 1, 1, 0), (2, 32, 24, 9, 9, 1, 1, 1, 0),
+           (2, 64, 40, 9, 11, 3, 1, 1, 0), (2, 128, 264, 10, 9, 1, 1, 1, 0),
+           (2, 112, 64, 9, 9, 1, 1, 1, 0), (2, 16, 64, 9, 9, 3, 1, 1, 0),
+           (2, 80, 32, 7, 9, 1, 1, 1, 0), (1, 3, 32, 63, 65, 6, 2, 1, 0),
+           (1, 128, 128, 20, 20, 3, 1, 1, 0), (2, 64, 128, 17, 15, 3, 1, 1, 5),
+           (2, 32, 5, 9, 7, 1, 1, 1, 0))
 Q2_EDGE = ((2, 24, 24, 15, 17, 3, 2, 24, 0), (1, 40, 40, 9, 11, 3, 1, 40, 0),
-           (2, 64, 64, 27, 25, 3, 2, 64, 5))
+           (2, 64, 64, 27, 25, 3, 2, 64, 5), (3, 64, 64, 11, 13, 3, 1, 64, 0),
+           (2, 72, 72, 7, 9, 3, 1, 72, 0), (1, 64, 64, 20, 20, 3, 1, 64, 0),
+           (1, 128, 128, 13, 13, 3, 2, 128, 9))
 
 
 def phase_int8_kernels(cfgs):
-    """Q1 at every distinct dense conv shape of yolox-s (B INT8_B), yolov3
-    (B V3_B) and nano (B NANO_B), Q2 at nano's depthwise shapes, and the
-    edge cases (Cin 3 and 16, odd sizes, stride 2 at the border, codes
-    not 16-byte aligned), against their plain versions. Returns ({model:
+    """The epilogue's branch-free SiLU and requant against their float64
+    and IEEE-division forms on all 2^32 float inputs; Q1 at every
+    distinct dense conv shape of yolox-s (B INT8_B), yolov3 (B V3_B) and
+    nano (B NANO_B), Q2 at nano's depthwise shapes, and the edge cases
+    (Q1_EDGE, Q2_EDGE), against their plain versions. Returns ({model:
     shape Counter}, Q1 max error, Q2 max error)."""
     import torch
 
@@ -3175,6 +3190,15 @@ def phase_int8_kernels(cfgs):
         module = YoloxModule.from_config(cfgs[name], rng_seed=seed)
         shapes[name] = int8_conv_shapes(module, size, b)
         del module
+    from yolox_tpu_torch.ops.int8_conv import epilogue_mismatches
+
+    n = epilogue_mismatches("cuda")
+    log(f"the epilogue's branch-free SiLU and requant against float64 y / "
+        f"(1 + exp(-y)) rounded once and clamp(rint(__fdiv_rn(y, s))) at 8 "
+        f"scales: {n} of 2^32 float inputs differ")
+    if n:
+        raise AssertionError("Q1 / Q2's epilogue differs from its defining "
+                             "arithmetic")
     cases = sorted({s + (0,) for c in shapes.values() for s in c})
     cases += list(Q1_EDGE) + list(Q2_EDGE)
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -3525,10 +3549,12 @@ def _conv_key(dw, args):
 def int8_conv_times(calls, depth_ms):
     """Q1 (or Q2) over the launches of one serve call (`calls`): the
     kernels' device ms (profiler, `depth_ms`) beside the sum of the
-    launches replayed back to back (`queued_ms`), the plain versions, the
-    bound and cuDNN's bf16 conv of each shape; and the same per launch at
-    the largest (by bound) and the most frequent shape, with
-    `torch._int_mm` over an im2col of the codes as a second yardstick."""
+    launches replayed back to back (`queued_ms`), the same with the relu
+    epilogue (the float64 SiLU's share), the plain versions, the bound and
+    cuDNN's bf16 conv of each shape, and for Q1 `torch._int_mm` over an
+    im2col of the codes summed over the launches (with the count of
+    launches whose shape it refuses); and the same per launch at the
+    largest (by bound) and the most frequent shape."""
     import collections
 
     import torch
@@ -3588,6 +3614,17 @@ def int8_conv_times(calls, depth_ms):
     first = {}
     for dw, a in calls:
         first.setdefault(_conv_key(dw, a), (dw, a))
+    # the same launches with the relu epilogue: what the float64 SiLU costs
+    relu = [(dw, a[:6] + ("relu",) + a[7:]) for dw, a in calls]
+    t["relu_device_ms"] = queued_ms(lambda: [kernel(dw, a) for dw, a in relu],
+                                    3)
+    if not any(dw for dw, _ in calls):
+        # torch._int_mm over the call: each shape's time times its count
+        mm = {key: int_mm_ms(a) for key, (_, a) in first.items()}
+        t["int_mm_ms"] = sum(v * count[key] for key, v in mm.items()
+                             if v is not None)
+        t["int_mm_refused"] = sum(count[key] for key, v in mm.items()
+                                  if v is None)
     largest = max(first.values(), key=lambda c: bound(*c)[0])
     frequent = first[count.most_common(1)[0][0]]
     for label, (dw, a) in (("largest", largest), ("most_frequent", frequent)):
@@ -3608,9 +3645,9 @@ def int8_conv_times(calls, depth_ms):
 
 def int_mm_ms(args):
     """Device ms of `torch._int_mm` on an im2col of one Q1 launch's codes
-    (M = B Ho Wo, K = k^2 Cin padded to 32, N = Cout), the im2col made
-    before the timing (in float16, which holds every int8, then cast);
-    None where `_int_mm` refuses the shape."""
+    (M = B Ho Wo, K = k^2 Cin padded as Q1 packs it, N = Cout), the
+    im2col made before the timing (in float16, which holds every int8,
+    then cast); None where `_int_mm` refuses the shape."""
     import torch
     import torch.nn.functional as F
 
@@ -3630,11 +3667,12 @@ def int_mm_ms(args):
 def int8_times(v3_mod, s_bf16, nano_mod, s_table, nano_table, threshold):
     """Serve latency (B 1) and throughput (B INT8_TIME_B) of yolov3 in
     float32 and bf16 and of yolox-s int8 (ladder and HBM, bf16 module);
-    Q1 over one B INT8_TIME_B ladder call and Q2 over one nano HBM call
-    (`int8_conv_times`)."""
+    Q1 over one B INT8_TIME_B ladder call (and the device ms of Q1 over a
+    B 1 ladder call) and Q2 over one nano HBM call (`int8_conv_times`)."""
     import torch
 
     from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.ops.int8_conv import int8_conv
 
     out = {"serve": {}}
     v3_bf16 = YoloxModule.from_config(v3_mod.config, rng_seed=777,
@@ -3663,7 +3701,13 @@ def int8_times(v3_mod, s_bf16, nano_mod, s_table, nano_table, threshold):
     calls = capture_int8_convs(s_bf16, x, threshold, int8_qtab=s_table)
     out["q1"] = int8_conv_times(
         calls, q1_dev.get(f"yolox_s_int8_ladder_bf16_b{INT8_TIME_B}"))
-    log(f"Q1 over one B {INT8_TIME_B} ladder call: {out['q1']}")
+    del calls
+    calls = capture_int8_convs(s_bf16, x[:1], threshold, int8_qtab=s_table)
+    out["q1"]["b1_launches"] = len(calls)
+    out["q1"]["b1_device_ms"] = queued_ms(
+        lambda: [int8_conv(*a) for _, a in calls], 5)
+    log(f"Q1 over one B {INT8_TIME_B} ladder call (and a B 1 one): "
+        f"{out['q1']}")
     del calls
     xn = np.random.default_rng(6).integers(0, 256, (INT8_TIME_B, NANO_SIZE,
                                                     NANO_SIZE, 3), np.uint8)
@@ -3721,6 +3765,9 @@ def run_int8(cfg, rng, lines):
             "replaces": "yolox_tpu/ops/quant.py:127",
             "launches": launches, "max_abs_err": err,
             **{k: q[k] for k in keys}, "unit": note,
+            **{k: q[k] for k in ("relu_device_ms", "int_mm_ms",
+                                 "int_mm_refused", "b1_device_ms",
+                                 "b1_launches") if k in q},
             "largest": q["largest"], "most_frequent": q["most_frequent"]})
     return entries
 

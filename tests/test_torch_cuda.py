@@ -451,13 +451,25 @@ def test_prefetcher_copies_pinned_batches(cuda):
     (1, 3, 32, 64, 62, 6, 2, 0), (2, 3, 32, 33, 35, 3, 1, 0),
     (2, 16, 32, 21, 19, 1, 1, 0), (2, 48, 96, 17, 19, 3, 2, 0),
     (1, 256, 512, 20, 20, 1, 1, 0), (1, 24, 40, 13, 11, 3, 1, 0),
-    (2, 64, 72, 9, 7, 3, 2, 1), (1, 32, 24, 5, 3, 3, 2, 7)])
+    (2, 64, 72, 9, 7, 3, 2, 1), (1, 32, 24, 5, 3, 3, 2, 7),
+    (3, 32, 64, 11, 13, 3, 1, 0), (2, 32, 24, 9, 9, 1, 1, 0),
+    (2, 64, 40, 9, 11, 3, 1, 0), (2, 32, 72, 10, 10, 3, 2, 0),
+    (2, 128, 264, 10, 9, 1, 1, 0), (1, 256, 264, 20, 20, 3, 1, 0),
+    (2, 112, 64, 9, 9, 1, 1, 0), (2, 16, 64, 9, 9, 3, 1, 0),
+    (2, 80, 32, 7, 9, 1, 1, 0), (2, 48, 24, 15, 13, 1, 1, 0),
+    (1, 3, 32, 63, 65, 6, 2, 0), (2, 3, 16, 31, 45, 6, 2, 0),
+    (1, 128, 128, 20, 20, 3, 1, 0), (2, 64, 128, 17, 15, 3, 1, 5),
+    (2, 32, 5, 9, 7, 1, 1, 0)])
 def test_int8_conv_q1_matches_plain(cuda, case):
     """Q1 on odd and unaligned shapes (the last field is the codes' byte
-    offset: no 16-byte rows): float32, bf16 and requantized outputs and
-    the unit-scale sums against the plain version, at
-    `chip_smoke.check_int8_conv`'s tolerances, each launch repeated
-    bit-equal; the launch counter moves once per call."""
+    offset: no 16-byte rows): M a multiple of neither BM (429), Cout 24 /
+    40 / 72 padded to an N tile and 264 in two, K just under and over a
+    k tile (112, 144; 48, 80), the 3-channel stem at odd W, B 1 at
+    20x20, unaligned codes (the window patch) and Cout 5 (stores of one
+    output); float32, bf16 and requantized outputs and the unit-scale
+    sums against the plain version, at `chip_smoke.check_int8_conv`'s
+    tolerances, each launch repeated bit-equal; the launch counter moves
+    once per call."""
     from yolox_tpu_torch.ops.int8_conv import int8_conv
 
     b, cin, cout, h, w, k, stride, offset = case
@@ -471,9 +483,14 @@ def test_int8_conv_q1_matches_plain(cuda, case):
 
 
 @pytest.mark.parametrize("case", [(2, 16, 52, 52, 1, 0), (2, 64, 27, 25, 2, 0),
-                                  (8, 128, 13, 13, 1, 0), (1, 24, 9, 7, 2, 3)])
+                                  (8, 128, 13, 13, 1, 0), (1, 24, 9, 7, 2, 3),
+                                  (3, 64, 11, 13, 1, 0), (1, 40, 9, 11, 1, 0),
+                                  (2, 72, 7, 9, 1, 0), (1, 64, 20, 20, 1, 0),
+                                  (1, 128, 13, 13, 2, 9),
+                                  (2, 16, 208, 208, 2, 0)])
 def test_int8_dwconv_q2_matches_plain(cuda, case):
-    """Q2 (depthwise 3x3) likewise."""
+    """Q2 (depthwise 3x3) likewise: channel groups cut by C (24, 40, 72),
+    M odd, B 1 at 20x20, unaligned codes, nano's widest stride-2 conv."""
     from yolox_tpu_torch.ops.int8_conv import int8_dwconv
 
     b, c, h, w, stride, offset = case
@@ -483,6 +500,16 @@ def test_int8_dwconv_q2_matches_plain(cuda, case):
     before = int8_dwconv.launches
     check_int8_conv(x, w8, scale, bias, 3, stride, out_scale, True)
     assert int8_dwconv.launches == before + 8
+
+
+def test_int8_epilogue_is_its_defining_arithmetic(cuda):
+    """The kernels' branch-free SiLU equals y / (1 + exp(-y)) in float64
+    rounded once, and their branch-free requant clamp(rint(__fdiv_rn(y,
+    s)), -127, 127) at eight scales s, on every float input (NaN equal to
+    NaN)."""
+    from yolox_tpu_torch.ops.int8_conv import epilogue_mismatches
+
+    assert epilogue_mismatches(cuda) == 0
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -501,6 +528,11 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         int8_conv(x, w, one, zero, 3, 1, "silu", torch.float16)
     with pytest.raises(AttributeError):
         int8_conv(x, w, one, zero, 3, 1, "gelu")
+    # a shape Q1's plan refuses: 1x1 on 3 channels (window runs < 8 bytes)
+    x3 = torch.zeros(1, 3, 8, 8, dtype=torch.int8, device=cuda)
+    w3 = pack_weight(torch.zeros(8, 3, 1, 1, dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="runs"):
+        int8_conv(x3, w3, one, zero, 1, 1, "silu")
 
 
 def test_int8_serve_on_cuda_matches_cpu(cuda):

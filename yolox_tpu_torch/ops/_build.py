@@ -54,9 +54,12 @@ SIGNATURES = {
              "yolox_shear_xy": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _P]},
     # Q1 / Q2: (x, w, scale, bias, out_scale, out, out_kind, B, H, W, Cin,
-    # [Cout,] k, stride, act, [vec,] stream)
-    "int8_conv": {"yolox_int8_conv": [_P] * 6 + [_I] * 10 + [_P],
-                  "yolox_int8_dwconv": [_P] * 6 + [_I] * 8 + [_P]},
+    # [Cout,] k, stride, act, the plan's choices, stream); the setup call
+    # of a device
+    "int8_conv": {"yolox_int8_conv": [_P] * 6 + [_I] * 16 + [_P],
+                  "yolox_int8_dwconv": [_P] * 6 + [_I] * 12 + [_P],
+                  "yolox_int8_init": [],
+                  "yolox_int8_epilogue_mismatches": [_P, _P]},
 }
 
 _lock = threading.Lock()
