@@ -131,9 +131,34 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain version, `int8_conv_bound`, cuDNN's bf16 conv and, at the
    largest and most frequent shape, `torch._int_mm` on an im2col).
 
+12. (run last) the `yolox-tpu-torch` commands (`run_cli`), yolox-s at
+   full width and depth, 640 px, seeded weights (`rng_seed` 4321, scores
+   spread) saved to a `.pth`, on a COCO set of 16 images written with cv2
+   whose boxes are the model's own detections: `eval` in float32 (AP50:95
+   / AP50 equal to `config.eval` on the same module and set), bf16 and
+   int8 HBM, then the three timed at B 32 on the set 20 times over (320
+   images; images/s of the evaluation call and its parts, the command's
+   start-up apart, the loader alone with its batches in shared memory and
+   pickled; `config.eval` before and after as the reference); `demo image` on a folder with a 1280 x 720 frame and `demo
+   video` on an MJPG clip (every image and frame equal to
+   `Yolox.__call__`, every frame written); `export` plain, with
+   `--include-postprocess` (B 1 and 32) and `--int8`, each program
+   reloaded with `torch.export.load` and run on the card, bit-equal to
+   the eager forward / serve / int8 forward (else within phase 4's
+   tolerances; which one held is printed), its operator nodes listed, the
+   exported against eager serve times and the operators' host cost a
+   call (`operator_cost`); `train` with `fused_conv_bwd` and
+   `device_augment` (2 epochs of 2 iterations, B 8, bf16), then `eval` of
+   its checkpoint; `visualize-assign` on the card and the CPU (equal
+   PNGs). Every command's launch counters are read around it (K3 / K4 43
+   times and K5 once a device-augmented step; K1 and K2 once a batch or
+   call; Q1 73 times an HBM batch and 74 an exported int8 call).
+
 Then JSON lines with the serve, evaluation, training, augmentation,
-int8 and trainer times and the kernels, the `nvidia-smi` name and power limit, and as the last line
-`{"ok": true, "device": {...}}`.
+int8, trainer and CLI results and the kernels (each with its launches on
+every main path: `launches`, `launches_eval`, `launches_trainer`,
+`launches_cli`), the `nvidia-smi` name and power limit, and as the last
+line `{"ok": true, "device": {...}}`.
 
 TF32 is turned off here (cuDNN and matmul) before any comparison with
 float32 references; the package itself never changes global flags.
@@ -145,6 +170,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3772,6 +3798,653 @@ def run_int8(cfg, rng, lines):
     return entries
 
 
+# ------------------------------------------------------------ the CLI phase
+
+CLI_N = 16           # images of the synthetic COCO set (train and val)
+CLI_B = 8            # eval / train batch
+# the timed evaluation: the val set CLI_TIME_SETS times over (320 images,
+# links to the same files) at B 32, as phase 9, so that the evaluation
+# and not the command's start-up sets the images/s
+CLI_TIME_SETS = 20
+CLI_TIME_N = CLI_N * CLI_TIME_SETS
+CLI_TIME_B = 32
+CLI_VIDEO = 6        # frames of the MJPG clip, 1280 x 720
+CLI_TIME_REPS = 20   # timed calls of an exported program and of eager serve
+CLI_OP_CALLS = 500   # calls timed for the operators' host cost
+CLI_CONF = 0.3       # demo / export thresholds (spread scores: ~0-0.6)
+CLI_CFG = """
+from yolox_tpu_torch.config import YoloxS
+
+
+class CliConfig(YoloxS):
+    def __init__(self):
+        super().__init__()
+        self.data_dir = {root!r}
+        self.output_dir = {out!r}
+        self.data_num_workers = 2
+        self.max_epoch = 2
+        self.no_aug_epochs = 0
+        self.warmup_epochs = 1
+        self.eval_interval = 1
+        self.print_interval = 1
+        self.multiscale_range = 0
+        self.save_history_ckpt = False
+
+
+class CliTimeConfig(CliConfig):
+    def __init__(self):
+        super().__init__()
+        self.data_dir = {timed!r}
+        self.data_num_workers = 4
+"""
+
+
+def cli_data(root, rng, model):
+    """The phase's files under `root`: CLI_N seeded BGR images of
+    `EVAL_SHAPES` written with cv2 as the train2017 / val2017 sets (one
+    annotation file for both) whose boxes are `model`'s own detections at
+    CLI_CONF on the decoded files (a random box where it finds none), the
+    timed val set `root/timed` (CLI_TIME_N links to them, CLI_TIME_SETS
+    times over), a demo folder (two of them and a 1280 x 720 frame) and a
+    CLI_VIDEO-frame MJPG clip at 1280 x 720; the config module `cli_cfg`
+    (`CliConfig`, and `CliTimeConfig` on the timed set) on `sys.path`.
+    Returns (demo folder, clip path)."""
+    import cv2
+
+    images = eval_images(CLI_N, seed=12)
+    for split in ("train2017", "val2017"):
+        (Path(root) / split).mkdir()
+        for i, im in enumerate(images):
+            cv2.imwrite(str(Path(root) / split / f"{i:012}.jpg"), im)
+    decoded = [cv2.imread(str(Path(root) / "val2017" / f"{i:012}.jpg"))
+               for i in range(CLI_N)]
+    boxes = []
+    for im, dets in zip(decoded, model(decoded, threshold=CLI_CONF)):
+        rows = [list(b) + [c] for b, c in zip(dets["bboxes"],
+                                               dets["labels"])]
+        if not rows:
+            h, w = im.shape[:2]
+            rows = [[w / 4, h / 4, w / 2, h / 2, int(rng.integers(80))]]
+        boxes.append(np.clip(np.asarray(rows, np.float64), 0, None))
+    for split in ("train2017", "val2017"):
+        coco_json(Path(root) / "annotations" / f"instances_{split}.json",
+                  images, boxes)
+    timed = Path(root) / "timed"
+    (timed / "val2017").mkdir(parents=True)
+    for i in range(CLI_TIME_N):
+        os.symlink(Path(root) / "val2017" / f"{i % CLI_N:012}.jpg",
+                   timed / "val2017" / f"{i:012}.jpg")
+    coco_json(timed / "annotations" / "instances_val2017.json",
+              images * CLI_TIME_SETS, boxes * CLI_TIME_SETS)
+    demo = Path(root) / "demo"
+    demo.mkdir()
+    cv2.imwrite(str(demo / "a.jpg"), images[0])
+    cv2.imwrite(str(demo / "b.jpg"), images[1])
+    cv2.imwrite(str(demo / "c_1280x720.jpg"),
+                rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8))
+    clip = str(Path(root) / "clip.avi")
+    writer = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"MJPG"), 10,
+                             (1280, 720))
+    for _ in range(CLI_VIDEO):
+        writer.write(rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8))
+    writer.release()
+    (Path(root) / "cli_cfg.py").write_text(CLI_CFG.format(
+        root=str(root), out=str(Path(root) / "out"), timed=str(timed)))
+    sys.path.insert(0, str(root))
+    log(f"cli set: {CLI_N} images, {sum(map(len, boxes))} boxes (the "
+        f"model's detections at {CLI_CONF})")
+    return demo, clip
+
+
+class CliRuns:
+    """`yolox_tpu_torch.cli.main(argv)` with the launch counters set to 0
+    just before it and read just after; records each run, the
+    `YoloxConfig.eval` results and seconds inside it, and the parts of
+    each COCO evaluation (`parts`: the evaluator's own timed inference
+    seconds, dispatch and fetch of every batch but the last, and the
+    seconds of `evaluate_prediction`, COCOeval's)."""
+
+    def __init__(self):
+        import yolox_tpu_torch
+        from yolox_tpu_torch.evaluators.coco_evaluator import CocoEvaluator
+
+        self.counters = _launch_counters()
+        self.runs, self.evals, self.eval_s, self.parts = [], [], [], []
+        self.cls, self.ev_cls = yolox_tpu_torch.YoloxConfig, CocoEvaluator
+        self.original_eval = self.cls.eval
+        self.original_predict = CocoEvaluator.evaluate_prediction
+
+        def record(cfg, *a, **kw):
+            _card_sync()
+            t0 = time.perf_counter()
+            out = self.original_eval(cfg, *a, **kw)
+            _card_sync()
+            self.evals.append(out)
+            self.eval_s.append(time.perf_counter() - t0)
+            return out
+
+        def predict(ev, data, statistics):
+            t0 = time.perf_counter()
+            out = self.original_predict(ev, data, statistics)
+            self.parts.append({"inference_s": float(statistics[0]),
+                               "timed_batches": int(statistics[2]),
+                               "cocoeval_s": time.perf_counter() - t0})
+            return out
+
+        self.cls.eval = record
+        CocoEvaluator.evaluate_prediction = predict
+
+    def close(self):
+        self.cls.eval = self.original_eval
+        self.ev_cls.evaluate_prediction = self.original_predict
+
+    def reset(self):
+        _card_sync()
+        for f in self.counters.values():
+            f.launches = 0
+
+    def read(self):
+        _card_sync()
+        return {k: f.launches for k, f in self.counters.items()}
+
+    def __call__(self, name, argv, want=None, call=None, reference=False):
+        """Run `argv` (or `call()`), check its launches against `want`
+        (the counters not named there 0); returns what it returned. A
+        `reference` run (what a command is held to) is recorded but left
+        out of the phase's launch totals."""
+        from yolox_tpu_torch.cli import main as cli_main
+
+        self.reset()
+        t0 = time.perf_counter()
+        out = call() if call is not None else cli_main(argv)
+        wall = time.perf_counter() - t0
+        got = self.read()
+        if call is None and out != 0:
+            raise AssertionError(f"cli {name}: exit code {out}")
+        if want is not None and got != _only(self.counters, **want):
+            raise AssertionError(f"cli {name}: launches {got}, want {want}")
+        self.runs.append({"run": name, "s": wall, "launches": got,
+                          "reference": reference})
+        log(f"cli {name}: {wall:.1f} s, launches "
+            + json.dumps({k: v for k, v in got.items() if v}))
+        return out
+
+
+def eval_loader_rates(tcfg):
+    """The evaluation loader alone over the timed set, images/s: as
+    `get_eval_loader` builds it (batches through shared memory), and with
+    the batches pickled through the workers' pipes (`collate`'s numpy
+    arrays), the route it took before."""
+    from torch.utils.data import DataLoader as TorchDataLoader
+
+    from yolox_tpu_torch.data.dataloading import collate
+    from yolox_tpu_torch.data.samplers import SequentialBatchSampler
+
+    ds = tcfg.get_eval_dataset()
+    pickled = TorchDataLoader(
+        ds, batch_sampler=SequentialBatchSampler(len(ds), CLI_TIME_B),
+        num_workers=tcfg.data_num_workers, collate_fn=collate)
+    out = {}
+    for key, loader in (("loader_alone_img_per_s",
+                         tcfg.get_eval_loader(CLI_TIME_B)),
+                        ("loader_alone_pickled_img_per_s", pickled)):
+        t0 = time.perf_counter()
+        n = sum(len(b[0]) for b in loader)
+        out[key] = n / (time.perf_counter() - t0)
+    log(f"evaluation loader alone, {tcfg.data_num_workers} workers, "
+        f"img/s: {out}")
+    return out
+
+
+def cli_eval(runs, name, ckpt, cfg_cls, time_name, time_cls):
+    """`eval` in float32 (against `config.eval` on the same module and
+    set), bf16 and int8 HBM on the CLI_N-image set at B CLI_B (AP50:95,
+    AP50 and launches); then the same three on the timed set of
+    CLI_TIME_N images at B CLI_TIME_B, between two `config.eval` calls
+    of the float32 module (the reference): images/s of each evaluation
+    call (loader, inference and the COCO statistics), the command's wall
+    seconds and what it spends outside that call (start-up: config,
+    module, checkpoint, loader)."""
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.utils.checkpoint import load_checkpoint
+
+    batches = -(-CLI_N // CLI_B)
+    argv = ["eval", "-c", name, "--ckpt", ckpt, "-b", str(CLI_B)]
+    res = {}
+    n = len(runs.evals)
+    runs("eval f32", argv, {"stem": batches, "nms": batches})
+    ap, ap50, _ = runs.evals[n]
+    cfg = cfg_cls()
+    module = YoloxModule.from_config(cfg, device=CARD)
+    module.load_params(load_checkpoint(ckpt)["model"])
+    want_ap, want_ap50, _ = runs("config.eval f32", None, {
+        "stem": batches, "nms": batches}, call=lambda: cfg.eval(
+            module, cfg.get_evaluator(CLI_B)), reference=True)
+    log(f"cli eval f32: AP50:95 {float(ap)!r} AP50 {float(ap50)!r}; "
+        f"config.eval {float(want_ap)!r} / {float(want_ap50)!r}")
+    if (ap, ap50) != (want_ap, want_ap50):
+        raise AssertionError("the eval command's float32 AP differs from "
+                             "config.eval on the same module and set")
+    res["f32"] = {"ap50_95": float(ap), "ap50": float(ap50)}
+    # int8 HBM: one calibration batch (its float forward runs K1), then
+    # every batch on the HBM path: K1 for the float stem, Q1 for the 73
+    # dense convs
+    modes = (("bf16", ["--fp16"], lambda b: {"stem": b, "nms": b}),
+             ("int8_hbm", ["--int8-hbm", "--calib-batches", "1"],
+              lambda b: {"stem": b + 1, "nms": b, "int8_conv": 73 * b}))
+    for key, flags, want in modes:
+        runs(f"eval {key}", argv + flags, want(batches))
+        res[key] = {"ap50_95": float(runs.evals[-1][0]),
+                    "ap50": float(runs.evals[-1][1])}
+
+    tb = -(-CLI_TIME_N // CLI_TIME_B)
+    targv = ["eval", "-c", time_name, "--ckpt", ckpt, "-b", str(CLI_TIME_B)]
+    tcfg = time_cls()
+
+    def timing(wall=None):
+        inside, part = runs.eval_s[-1], runs.parts[-1]
+        out = {"img_per_s": CLI_TIME_N / inside, "eval_s": inside,
+               "inference_s": part["inference_s"],
+               "inference_img_per_s": part["timed_batches"] * CLI_TIME_B
+               / part["inference_s"] if part["inference_s"] else None,
+               "cocoeval_s": part["cocoeval_s"],
+               "loader_and_rest_s": inside - part["inference_s"]
+               - part["cocoeval_s"],
+               "ap50_95": float(runs.evals[-1][0]),
+               "ap50": float(runs.evals[-1][1])}
+        if wall is not None:
+            out.update(wall_s=wall, start_up_s=wall - inside)
+        return out
+
+    def reference(i):
+        runs(f"config.eval f32 timed {i}", None, {"stem": tb, "nms": tb},
+             call=lambda: tcfg.eval(module, tcfg.get_evaluator(CLI_TIME_B)),
+             reference=True)
+        return timing()
+
+    timed = {"images": CLI_TIME_N, "batch": CLI_TIME_B,
+             "workers": tcfg.data_num_workers,
+             **eval_loader_rates(tcfg), "config_eval_1": reference(1)}
+    for key, flags, want in (("f32", [], modes[0][2]),) + modes:
+        runs(f"eval {key} timed", targv + flags, want(tb))
+        timed[key] = timing(runs.runs[-1]["s"])
+    timed["config_eval_2"] = reference(2)
+    if timed["f32"]["ap50_95"] != timed["config_eval_1"]["ap50_95"]:
+        raise AssertionError("the eval command's float32 AP differs from "
+                             "config.eval on the timed set")
+    res["timed"] = timed
+    log("cli eval: " + json.dumps(res))
+    del module
+    return res
+
+
+def cli_demo(runs, name, ckpt, cfg_cls, demo, clip, root):
+    """`demo image` on the demo folder and `demo video` on the clip, each
+    image and frame against `Yolox.__call__` (the same batches)."""
+    import cv2
+    from PIL import Image
+
+    from yolox_tpu_torch import Yolox, YoloxModule, YoloxProcessor
+    from yolox_tpu_torch.cli import demo as demo_cli
+    from yolox_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg = cfg_cls()
+    module = YoloxModule.from_config(cfg, device=CARD)
+    module.load_params(load_checkpoint(ckpt)["model"])
+    model = Yolox(module, YoloxProcessor(cfg))
+
+    def demo_run(argv):
+        return demo_cli.run(demo_cli.make_parser().parse_args(argv))
+
+    files = sorted(demo.iterdir())
+    out = Path(root) / "demo_out"
+    got = runs("demo image", None, {"stem": len(files), "nms": len(files)},
+               call=lambda: demo_run([
+                   "image", "-c", name, "--path", str(demo), "--ckpt", ckpt,
+                   "--conf", str(CLI_CONF), "--save_result",
+                   "--output-dir", str(out)]))
+    want = [model([Image.open(f)], threshold=CLI_CONF)[0] for f in files]
+    if got != want:
+        raise AssertionError("demo image detections differ from "
+                             "Yolox.__call__ on the same images")
+    if sorted(p.name for p in out.iterdir()) != [f.name for f in files]:
+        raise AssertionError("demo image did not save every image")
+    n_img = sum(len(d["labels"]) for d in got)
+    cap, frames = cv2.VideoCapture(clip), []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(np.ascontiguousarray(frame[:, :, ::-1]))
+    cap.release()
+    calls = -(-len(frames) // 2)
+    got = runs("demo video", None, {"stem": calls, "nms": calls},
+               call=lambda: demo_run([
+                   "video", "-c", name, "--path", clip, "--ckpt", ckpt,
+                   "--conf", str(CLI_CONF), "--batch", "2", "--save_result",
+                   "--output-dir", str(out / "video")]))
+    want = []
+    for i in range(0, len(frames), 2):
+        want += model(frames[i:i + 2], threshold=CLI_CONF)
+    if len(frames) != CLI_VIDEO or got != want:
+        raise AssertionError("demo video detections differ from "
+                             "Yolox.__call__ on the same frames")
+    cap = cv2.VideoCapture(str(out / "video" / Path(clip).name))
+    written = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    if written != CLI_VIDEO:
+        raise AssertionError(f"demo video wrote {written} of {CLI_VIDEO} "
+                             "frames")
+    log(f"cli demo: {len(files)} images ({n_img} detections) and "
+        f"{CLI_VIDEO} frames ({sum(len(d['labels']) for d in got)}) equal "
+        "Yolox.__call__; every frame written")
+    return module, {"image_detections": n_img,
+                    "video_detections": sum(len(d["labels"]) for d in got)}
+
+
+def _program_close(got, want, dets):
+    """'bit-equal', or 'within phase 4 tolerances' (detections at
+    `assert_dets_match`, raw outputs at rtol 1e-4 / atol 1e-2); raises
+    otherwise."""
+    import torch
+
+    if all(torch.equal(g, w) for g, w in zip(got, want)):
+        return "bit-equal"
+    if dets:
+        assert_dets_match(got[0].cpu(), got[1].cpu(), want[0].cpu(),
+                          want[1].cpu())
+    elif not all(np.allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-4,
+                             atol=1e-2) for g, w in zip(got, want)):
+        raise AssertionError("exported program against eager: beyond "
+                             "rtol 1e-4 / atol 1e-2")
+    return "within phase 4 tolerances"
+
+
+def _wall_ms(fn, reps=CLI_TIME_REPS):
+    """Median wall ms of fn() with the card synchronized, after 3 warm-up
+    calls."""
+    import torch
+
+    samples = []
+    for i in range(reps + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= 3:
+            samples.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(samples))
+
+
+def operator_cost(module):
+    """Host µs a call of K1 and K2 (b1 serving shapes) and Q1 (a 3x3
+    128->128 conv at 40 px, B 1) through the registered operator and
+    through the wrapper's eager (direct) call: CLI_OP_CALLS calls each, the card
+    synchronized around them (the calls are host-bound)."""
+    import torch
+
+    from yolox_tpu_torch.ops import int8_conv as q
+    from yolox_tpu_torch.ops import nms_kernel, stem
+
+    dev = module.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randint(0, 256, (1, 640, 640, 3), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    scale, bias = module.backbone.backbone.stem.conv.bn_fold()
+    wb = torch.randn(scale.shape[0], 3, 6, 6, generator=gen, device=dev)
+    boxes = torch.rand(1, 256, 4, generator=gen, device=dev) * 300
+    boxes[..., 2:] += boxes[..., :2]
+    valid = torch.ones(1, 256, dtype=torch.bool, device=dev)
+    xq = torch.randint(-127, 128, (1, 128, 40, 40), generator=gen,
+                       device=dev, dtype=torch.int8).contiguous(
+                           memory_format=torch.channels_last)
+    wq = q.pack_weight(torch.randint(-127, 128, (128, 128, 3, 3),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int8))
+    s8, b8 = torch.rand(128, device=dev) * 1e-3, torch.rand(128, device=dev)
+    ops = torch.ops.yolox_tpu_torch
+    cases = {
+        "stem_conv_bn_act": (
+            lambda: stem.stem_conv_bn_act(x, wb, scale, bias),
+            lambda: ops.stem_conv_bn_act(x, wb, scale, bias, "silu",
+                                         torch.float32)),
+        "nms_keep": (lambda: nms_kernel.nms_keep(boxes, valid, 0.65),
+                     lambda: ops.nms_keep(boxes, valid, 0.65)),
+        "int8_conv": (
+            lambda: q.int8_conv(xq, wq, s8, b8, 3, 1, "silu"),
+            lambda: ops.int8_conv(xq, wq, s8, b8, 3, 1, "silu",
+                                  torch.float32, None)),
+    }
+    out = {}
+    for name, (direct, op) in cases.items():
+        if not torch.equal(direct(), op()):
+            raise AssertionError(f"{name}: the operator and the direct call "
+                                 "disagree")
+        us = {}
+        for route, fn in (("direct", direct), ("op", op), ("direct2", direct),
+                          ("op2", op)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CLI_OP_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            us[route] = 1e6 * (time.perf_counter() - t0) / CLI_OP_CALLS
+        out[name] = {"direct_us": min(us["direct"], us["direct2"]),
+                     "op_us": min(us["op"], us["op2"])}
+        out[name]["op_cost_us"] = out[name]["op_us"] - out[name]["direct_us"]
+    log("operator cost a call (host µs, min of two runs of "
+        f"{CLI_OP_CALLS}): " + json.dumps(
+            {k: {kk: round(vv, 2) for kk, vv in v.items()}
+             for k, v in out.items()}))
+    return out
+
+
+def cli_export(runs, name, ckpt, module, demo, root):
+    """`export` on the card: plain (B 1), `--include-postprocess` (B 1 and
+    32) and `--int8` (B 1, calibrated on the demo images); each program
+    reloaded with `torch.export.load` and run on the card with the
+    counters read around the call, against the eager forward / serve /
+    int8 ladder forward on the same input; exported against eager serve
+    times at B 1 and 32; the operators' host cost."""
+    import torch
+    from PIL import Image
+
+    from yolox_tpu_torch import YoloxProcessor
+    from yolox_tpu_torch.cli.export import load_program
+    from yolox_tpu_torch.ops.library import exported_ops
+
+    gen = torch.Generator(device=CARD).manual_seed(3)
+    res = {}
+    calib = sorted(str(p) for p in demo.iterdir())
+    table = module.calibrate_int8(YoloxProcessor(module.config)(
+        [Image.open(p) for p in calib]))
+    for kind, b, flags in (
+            ("plain", 1, []),
+            ("postprocess", 1, ["--include-postprocess", "--conf",
+                                str(CLI_CONF)]),
+            ("postprocess", 32, ["--include-postprocess", "--conf",
+                                 str(CLI_CONF)]),
+            ("int8", 1, ["--int8", "--calib-images"] + calib)):
+        path = str(Path(root) / f"{kind}_b{b}.pt2")
+        t0 = time.perf_counter()
+        runs(f"export {kind} b{b}", ["export", "-c", name, "--ckpt", ckpt,
+                                     "--batch-size", str(b), "--output",
+                                     path] + flags)
+        export_s = time.perf_counter() - t0
+        loaded = load_program(path)
+        nodes = {k: v for k, v in exported_ops(loaded).items() if v}
+        program = loaded.module()
+        x = torch.randint(0, 256, (b,) + tuple(module.config.test_size)
+                          + (3,), generator=gen, device=CARD).float()
+        with torch.inference_mode():
+            if kind == "plain":
+                def eager():
+                    return (module(x),)
+                want_launches = {"stem": 1}
+            elif kind == "postprocess":
+                def eager():
+                    return module.serve(x, conf_thre=CLI_CONF,
+                                        nms_thre=module.config.nmsthre)
+                want_launches = {"stem": 1, "nms": 1}
+            else:
+                def eager():
+                    return (module.forward_body(x, "ladder", table),)
+                want_launches = {"int8_conv": 74}
+            want = eager()
+
+            def run_program():
+                out = program(x)
+                return out if isinstance(out, tuple) else (out,)
+
+            got = runs(f"exported {kind} b{b}", None, want_launches,
+                       call=run_program)
+            held = _program_close(got, want, kind == "postprocess")
+            entry = {"export_s": export_s, "held": held, "nodes": nodes}
+            if kind == "postprocess":
+                entry["exported_ms"] = _wall_ms(run_program)
+                entry["eager_serve_ms"] = _wall_ms(eager)
+                entry["exported_ms_2"] = _wall_ms(run_program)
+                entry["eager_serve_ms_2"] = _wall_ms(eager)
+        log(f"cli export {kind} b{b}: {held}, nodes {nodes}, "
+            + json.dumps({k: v for k, v in entry.items()
+                          if k.endswith("_ms") or k.endswith("_2")}))
+        res[f"{kind}_b{b}"] = entry
+    res["operator_cost"] = operator_cost(module)
+    return res
+
+
+def cli_train(runs, name, root):
+    """`train` through the CLI: yolox-s, 640 px, B CLI_B, bf16,
+    `fused_conv_bwd`, `device_augment`, 2 epochs of CLI_N / CLI_B
+    iterations (epoch 1 augments on the card, epoch 2 letterboxes on the
+    host), the counters read around every iteration and evaluation; then
+    `eval --ckpt` on the checkpoint it wrote."""
+    import math
+
+    import yolox_tpu_torch
+
+    recs = []
+    cls = yolox_tpu_torch.YoloxConfig
+    original = cls.get_trainer
+
+    def get_trainer(cfg, args):
+        trainer = original(cfg, args)
+        recs.append(instrument_trainer(trainer, runs.counters))
+        return trainer
+
+    cls.get_trainer = get_trainer
+    try:
+        runs("train", ["train", "-c", name, "-b", str(CLI_B), "--fp16",
+                       "-n", "train", "-D", "fused_conv_bwd=True",
+                       "-D", "device_augment=True", "--seed", "0"])
+    finally:
+        cls.get_trainer = original
+    rec, = recs
+    # the trainer's hooks reset the counters around each iteration and
+    # evaluation: the run's launches are theirs summed
+    runs.runs[-1]["launches"] = {
+        k: sum(r["launches"][k] for r in rec["iters"] + rec["evals"])
+        for k in runs.counters}
+    iters_per_epoch = CLI_N // CLI_B
+    if len(rec["iters"]) != 2 * iters_per_epoch:
+        raise AssertionError(f"train ran {len(rec['iters'])} iterations")
+    for it in rec["iters"]:
+        k5 = 1 if it["epoch"] == 0 else 0
+        want = _only(runs.counters, reduce_sums=43, main_1x1=43,
+                     shear_xy=k5)
+        if it["launches"] != want or not math.isfinite(it["loss"]):
+            raise AssertionError(f"train iteration {it['progress']}: "
+                                 f"launches {it['launches']}, loss "
+                                 f"{it['loss']}; want {want}, finite")
+    batches = -(-CLI_N // CLI_B)
+    for ev in rec["evals"]:
+        if ev["launches"] != _only(runs.counters, stem=batches, nms=batches):
+            raise AssertionError(f"train evaluation launched "
+                                 f"{ev['launches']}")
+    ckpt = Path(root) / "out" / "train" / "latest_ckpt.pth"
+    if not ckpt.exists():
+        raise AssertionError("train wrote no latest_ckpt.pth")
+    runs("eval of the trained checkpoint",
+         ["eval", "-c", name, "--ckpt", str(ckpt), "-b", str(CLI_B)],
+         {"stem": batches, "nms": batches})
+    log(f"cli train: {len(rec['iters'])} iterations, losses "
+        + ", ".join(f"{it['loss']:.3f}" for it in rec["iters"])
+        + f"; K3/K4 43 and K5 {[it['launches']['shear_xy'] for it in rec['iters']]}"
+        " a step")
+    return {"iters": [{k: it[k] for k in ("epoch", "ms", "loss",
+                                          "device_augment", "launches")}
+                      for it in rec["iters"]],
+            "evals": rec["evals"]}
+
+
+def cli_visualize(runs, name, root):
+    """`visualize-assign` on the card and on the CPU: the same PNGs."""
+    from PIL import Image
+
+    outs = {}
+    for dev in (CARD, "cpu"):
+        out = Path(root) / f"assign_{dev}"
+        runs(f"visualize-assign {dev}", ["visualize-assign", "-c", name,
+                                         "-b", "2", "--output-dir", str(out),
+                                         "--device", dev], {})
+        outs[dev] = {p.name: np.asarray(Image.open(p))
+                     for p in sorted(out.iterdir())}
+    card, cpu = outs[CARD], outs["cpu"]
+    if sorted(card) != sorted(cpu) or len(card) != 2:
+        raise AssertionError(f"visualize-assign wrote {sorted(card)} on the "
+                             f"card, {sorted(cpu)} on the CPU")
+    differ = {k: int((card[k] != cpu[k]).any(-1).sum()) for k in card}
+    log(f"cli visualize-assign: pixels that differ card vs CPU {differ}")
+    if any(differ.values()):
+        raise AssertionError("visualize-assign PNGs differ between the card "
+                             "and the CPU")
+    return {"pngs": sorted(card)}
+
+
+def run_cli(cfg, rng, lines):
+    """Phase 12: the `yolox-tpu-torch` commands on the card. Returns each
+    kernel's launches summed over the phase's main-path runs."""
+    import tempfile
+
+    from yolox_tpu_torch import Yolox, YoloxModule, YoloxProcessor
+    from yolox_tpu_torch.models.weights import save_pth_state_dict
+
+    with tempfile.TemporaryDirectory() as root:
+        module = spread_scores(
+            YoloxModule.from_config(cfg, rng_seed=4321, device=CARD),
+            np.random.default_rng(7).integers(0, 256, (2, 640, 640, 3),
+                                              dtype=np.uint8))
+        ckpt = str(Path(root) / "yolox_s_seed4321.pth")
+        save_pth_state_dict(module.state_dict(), ckpt)
+        demo, clip = cli_data(root, rng, Yolox(module, YoloxProcessor(cfg)))
+        del module
+        import cli_cfg
+
+        name = "cli_cfg:CliConfig"
+        runs = CliRuns()
+        try:
+            res = {"eval": cli_eval(runs, name, ckpt, cli_cfg.CliConfig,
+                                    "cli_cfg:CliTimeConfig",
+                                    cli_cfg.CliTimeConfig)}
+            module, res["demo"] = cli_demo(runs, name, ckpt,
+                                           cli_cfg.CliConfig, demo, clip,
+                                           root)
+            res["export"] = cli_export(runs, name, ckpt, module, demo, root)
+            del module
+            res["train"] = cli_train(runs, name, root)
+            res["visualize_assign"] = cli_visualize(runs, name, root)
+        finally:
+            runs.close()
+            sys.path.remove(root)
+            sys.modules.pop("cli_cfg", None)
+    totals = {k: sum(r["launches"][k] for r in runs.runs
+                     if not r["reference"])
+              for k in runs.counters}
+    res["runs"] = runs.runs
+    lines.append({"cli": res})
+    return totals
+
+
 def main() -> int:
     try:
         import torch
@@ -3822,10 +4495,12 @@ def main() -> int:
     plain = next(line["train"] for line in lines if "train" in line)
     trainer_launches = run_trainer(
         cfg, len(shapes), plain["bfloat16_fused"].get("device_ms"), lines)
+    cli_launches = run_cli(cfg, rng, lines)
     for entry in kernels:
-        entry["launches_trainer"] = trainer_launches[
-            {"stem_conv_bn_act": "stem", "nms_keep": "nms"}.get(
-                entry["name"], entry["name"])]
+        key = {"stem_conv_bn_act": "stem", "nms_keep": "nms"}.get(
+            entry["name"], entry["name"])
+        entry["launches_trainer"] = trainer_launches[key]
+        entry["launches_cli"] = cli_launches[key]
     for line in lines:
         log(json.dumps(line))
     log(json.dumps({"kernels": kernels}))

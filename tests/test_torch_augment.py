@@ -42,6 +42,7 @@ from yolox_tpu_torch.core import (
 )
 from yolox_tpu_torch.core.train_step import _multiscale_resize
 from yolox_tpu_torch.data import device_augment as td
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 DRAW_KEYS = ("yc", "xc", "m", "u_mix", "jf", "mixflip", "y_off", "x_off",
              "do_mosaic", "do_hsv", "do_flip", "hsv_gains")

@@ -25,6 +25,7 @@ from yolox_tpu_torch.models.weights import (
     state_dict_from_jax,
     state_dict_to_jax,
 )
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 RTOL = ATOL = 1e-4
 

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from yolox_tpu.ops import pallas_conv_bwd as pcb
 from yolox_tpu_torch.ops import conv_bwd as cb
 from yolox_tpu_torch.ops.stem import activate
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 # (ksize, stride, groups, act, cin, cout): tests/test_fused_conv_bwd.py
 CASES = [

@@ -565,3 +565,63 @@ def test_int8_serve_on_cuda_matches_cpu(cuda):
         assert (int8_conv.launches - before[0],
                 stem_conv_bn_act.launches - before[1]) == (n_q1 - hbm, hbm)
         assert torch.isfinite(dets[valid]).all()
+
+
+class _OneOp(torch.nn.Module):
+    """One kernel wrapper as a module, for `torch.export`."""
+
+    def __init__(self, fn, *consts):
+        super().__init__()
+        self.fn, self.consts = fn, consts
+
+    def forward(self, x, *rest):
+        return self.fn(x, *rest, *self.consts)
+
+
+@pytest.mark.parametrize("kernel", ["stem", "nms", "int8_conv",
+                                    "int8_dwconv"])
+def test_exported_operator_equals_direct_launch(cuda, kernel):
+    """K1, K2, Q1 and Q2 exported alone: the program holds the operator,
+    runs the kernel (its counter advances by one a call) and returns what
+    the direct launch does, bit for bit."""
+    from yolox_tpu_torch.ops import int8_conv as q
+    from yolox_tpu_torch.ops import nms_kernel, stem
+    from yolox_tpu_torch.ops.library import exported_ops
+
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    if kernel == "stem":
+        wb, scale, bias = _stem_inputs(rng, 32, cuda)
+        args = (torch.randint(0, 256, (2, 64, 96, 3), generator=gen,
+                              device=cuda, dtype=torch.uint8),)
+        mod = _OneOp(stem.stem_conv_bn_act, wb, scale, bias)
+        counter, direct = stem.stem_conv_bn_act, \
+            lambda x: stem.stem_conv_bn_act.direct(x, wb, scale, bias)
+    elif kernel == "nms":
+        boxes = torch.from_numpy(random_boxes(rng, 2, 300)).to(cuda)
+        args = (boxes, torch.ones(2, 300, dtype=torch.bool, device=cuda))
+        mod = _OneOp(nms_kernel.nms_keep, 0.5)
+        counter, direct = nms_kernel.nms_keep, \
+            lambda b, v: nms_kernel.nms_keep.direct(b, v, 0.5)
+    else:
+        dw = kernel == "int8_dwconv"
+        x, w, scale, bias, out_scale = q_inputs(gen, 2, 64, 64, 20, 24, 3,
+                                                dw)
+        fn = q.int8_dwconv if dw else q.int8_conv
+        args = (x,)
+        mod = _OneOp(fn, w, scale, bias, 3, 1, "silu", torch.float32,
+                     out_scale)
+        counter = fn
+        direct = lambda x: fn.direct(x, w, scale, bias, 3, 1, "silu",  # noqa
+                                     torch.float32, out_scale)
+    with torch.no_grad():
+        program = torch.export.export(mod, args, strict=False)
+    name = {"stem": "stem_conv_bn_act", "nms": "nms_keep"}.get(kernel, kernel)
+    assert exported_ops(program)[name] == 1
+    want = direct(*args)
+    before = counter.launches
+    got = program.module()(*args)
+    assert counter.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.stride() == want.stride()
+    assert torch.equal(got, want)

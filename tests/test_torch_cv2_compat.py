@@ -21,6 +21,7 @@ from yolox_tpu.data.data_augment import get_affine_matrix
 from yolox_tpu.ops.preproc import preproc as jax_preproc
 from yolox_tpu_torch.data import cv2_compat
 from yolox_tpu_torch.ops.preproc import preproc
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 RESIZES = [
     ((720, 1280), (640, 360)),    # a video frame letterboxed to 640 (2x)

@@ -32,6 +32,7 @@ from yolox_tpu_torch.data import (
     TileDataset,
     YoloBatchSampler,
 )
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 BATCHES = 3
 

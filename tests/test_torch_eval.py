@@ -34,6 +34,7 @@ from yolox_tpu.data.coco_json import COCO as JCOCO
 from yolox_tpu.evaluators.cocoeval import COCOeval as JCOCOeval
 from yolox_tpu_torch.data.coco_json import COCO
 from yolox_tpu_torch.evaluators.cocoeval import COCOeval
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 # --------------------------------------------------------------- COCOeval
 
@@ -217,6 +218,27 @@ def _loaders(coco_dir, img_size, batch_size=4):
 
 def _summary_without_timing(summary):
     return summary.split("\n", 1)[1]
+
+
+def test_eval_loader_workers_hand_batches_over_in_shared_memory(coco_dir):
+    """With workers the evaluation batches cross to the main process in
+    shared memory, not pickled through a pipe, and equal the in-process
+    batches: numpy arrays, as JAX's loader gives."""
+    from yolox_tpu_torch.data import CocoDataset, ValTransform, eval_loader
+
+    ds = CocoDataset(preproc=ValTransform(), data_dir=coco_dir,
+                     json_file="instances_train2017.json", name="train2017",
+                     img_size=(64, 64))
+    here = list(eval_loader(ds, 5))
+    there = list(eval_loader(ds, 5, num_workers=2))
+    assert len(here) == len(there) == 3
+    for a, b in zip(here, there):
+        for x, y in zip(a[:2], b[:2]):
+            assert isinstance(y, np.ndarray) and y.dtype == x.dtype
+            np.testing.assert_array_equal(y, x)
+            assert y.base.is_shared() and not x.base.is_shared()
+        assert a[2] == b[2]
+        assert [int(i[0]) for i in a[3]] == [int(i[0]) for i in b[3]]
 
 
 def test_coco_evaluator_ground_truth_model_matches_jax(coco_dir):

@@ -33,6 +33,7 @@ from yolox_tpu_torch.ops.int8_conv import (
     q1_smem,
     q2_plan,
 )
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 MODELS = (("yolox_s", cs.INT8_SIZE), ("yolov3", cs.INT8_SIZE),
           ("yolox_nano", cs.NANO_SIZE))

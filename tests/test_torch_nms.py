@@ -29,6 +29,7 @@ from yolox_tpu_torch.ops.nms_kernel import (
     nms_keep,
     nms_keep_plain,
 )
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 
 def _cases():

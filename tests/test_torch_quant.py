@@ -66,6 +66,7 @@ from yolox_tpu_torch.models.weights import (
 )
 from yolox_tpu_torch.models.yolo_fpn import YoloFpn
 from yolox_tpu_torch.ops import quant as tq
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 SIZE = 64           # image side of the model-level tests
 F32_TOL = 1e-6

@@ -33,6 +33,7 @@ from chip_smoke import (
 from yolox_tpu_torch import Yolox, YoloxConfig, YoloxModule, YoloxProcessor
 from yolox_tpu_torch.models.weights import save_pth_state_dict
 from yolox_tpu_torch.ops.nms import postprocess_device
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = REPO / "tests" / "golden"

@@ -23,6 +23,7 @@ from yolox_tpu.models import blocks as jb
 from yolox_tpu.ops import pallas_stem
 from yolox_tpu_torch.models import blocks as tb
 from yolox_tpu_torch.ops import stem
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 BF16_ULP = 2.0 ** -7
 

@@ -43,6 +43,7 @@ from yolox_tpu_torch.models.weights import (
     train_state_from_jax,
     train_state_to_jax,
 )
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 NUM_CLASSES = 8
 

@@ -25,6 +25,7 @@ import torch
 from yolox_tpu import YoloxConfig as JConfig
 from yolox_tpu_torch import YoloxConfig
 from yolox_tpu_torch.models.weights import state_dict_from_jax
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 
 def _tiny(cls, coco_dir, out_dir):

@@ -30,6 +30,7 @@ from yolox_tpu_torch.utils import (
     load_ckpt,
     save_checkpoint,
 )
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 
 def _small(cls):

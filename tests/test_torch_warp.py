@@ -25,6 +25,7 @@ from yolox_tpu.ops import pallas_warp as jw
 from yolox_tpu_torch.data.device_augment import mosaic_warp
 from yolox_tpu_torch.ops import warp as tw
 from yolox_tpu_torch.ops.shear_kernel import shear_x, shear_xy
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 
 def _t(a):

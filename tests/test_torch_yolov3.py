@@ -31,6 +31,7 @@ from yolox_tpu_torch.models.darknet import Darknet
 from yolox_tpu_torch.models.head import YoloxHead
 from yolox_tpu_torch.models.weights import state_dict_to_jax
 from yolox_tpu_torch.models.yolo_fpn import YoloFpn
+import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 RTOL, ATOL = 1e-4, 1e-3
 

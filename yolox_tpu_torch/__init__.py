@@ -19,7 +19,11 @@ Evaluation (`YoloxConfig.get_evaluator` / `YoloxConfig.eval`,
 yolov3 (Darknet-53 + YoloFpn) serves like the CSPDarknet models, and int8
 post-training quantization (`YoloxModule.calibrate_int8`, `serve(...,
 int8_qtab=...)` or `int8_hbm_qtab=...`, `enable_int8`) runs its convs as
-two more hand-written kernels (`csrc/int8_conv.cu`).
+two more hand-written kernels (`csrc/int8_conv.cu`). The `yolox-tpu-torch`
+command (`yolox_tpu_torch.cli`) trains, evaluates, runs the demo and
+exports a `torch.export` program that carries the serving kernels as
+registered operators (`yolox_tpu_torch.ops.library`, registered when the
+package is imported).
 """
 
 from yolox_tpu_torch.version import __version__

@@ -10,7 +10,10 @@ tensors holding its numpy arrays (`collate_tensors`: a worker hands them
 over in shared memory; pickled through a pipe, a B 16 float32 640 px
 batch took longer to cross than to build). The batch sampler hands every
 sample its seed, so a batch does not depend on the worker count.
-`eval_loader` gives the evaluation's sequential batches (numpy).
+`eval_loader` gives the evaluation's sequential batches as numpy arrays;
+its workers hand them over in shared memory too (pickled, a B 32
+float32 640 px batch held the `eval` command to ~14 img/s on an H100's
+host).
 
 `DevicePrefetcher` keeps the next batch's host-to-device copy in flight:
 a `non_blocking` copy on a side CUDA stream, which the consumer's stream
@@ -67,15 +70,24 @@ def _worker_init(_worker_id):
 
 def eval_loader(dataset, batch_size: int, num_workers: int = 0,
                 rank: int = 0, world_size: int = 1):
-    """Sequential evaluation batches of `dataset` (rank-strided)."""
+    """Sequential evaluation batches of `dataset` (rank-strided): `collate`'s
+    numpy arrays, views of the tensors `collate_tensors` made in a
+    worker."""
     from torch.utils.data import DataLoader as TorchDataLoader
 
     from yolox_tpu_torch.data.samplers import SequentialBatchSampler
 
+    class EvalLoader(TorchDataLoader):
+        def __iter__(self):
+            for imgs, targets, infos, ids in super().__iter__():
+                yield imgs.numpy(), targets.numpy(), infos, ids
+
     sampler = SequentialBatchSampler(len(dataset), batch_size=batch_size,
                                      rank=rank, world_size=world_size)
-    return TorchDataLoader(dataset, batch_sampler=sampler,
-                           num_workers=num_workers, collate_fn=collate)
+    return EvalLoader(dataset, batch_sampler=sampler,
+                      num_workers=num_workers, collate_fn=collate_tensors,
+                      worker_init_fn=_worker_init if num_workers > 0
+                      else None)
 
 
 class DataLoader:

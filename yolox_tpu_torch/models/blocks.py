@@ -168,16 +168,37 @@ class Int8Hooks:
             raise RuntimeError("int8 PTQ is a serving/eval-only path")
         return st.mode
 
+    @staticmethod
+    def _cache_key(st, params):
+        return (st.mode, id(st.table)) + tuple(
+            (t.data_ptr(), t._version, t.dtype, t.device) for t in params)
+
     def cached(self, params, make):
         """make(), reused while the mode, the table object and every
         tensor of `params` (address, in-place version, dtype) stay the
-        same; `YoloxModule.load_params` / `cast_params` also drop it."""
+        same; `YoloxModule.load_params` / `cast_params` also drop it.
+        While `torch.export` traces, `params` are fake tensors: the
+        weights an eager call made for this mode and table are taken as
+        they are (the program keeps them as constants), and there must be
+        some, made from the parameters as they are now (the cache keeps
+        the real tensors it was made from to check this)."""
         st = self.qstate
-        key = (st.mode, id(st.table)) + tuple(
-            (t.data_ptr(), t._version, t.dtype, t.device) for t in params)
         c = self._q_cache
+        if torch.compiler.is_exporting():
+            if c is None or c[0][:2] != (st.mode, id(st.table)) \
+                    or c[1] is not st.table:
+                raise RuntimeError(
+                    f"{self.qpath}: no quantized weights for this int8 table; "
+                    "call the serving function once before exporting it")
+            if c[0] != self._cache_key(st, c[3]):
+                raise RuntimeError(
+                    f"{self.qpath}: the parameters changed since the "
+                    "quantized weights were made; call the serving function "
+                    "again before exporting it")
+            return c[2]
+        key = self._cache_key(st, params)
         if c is None or c[0] != key or c[1] is not st.table:
-            c = self._q_cache = (key, st.table, make())
+            c = self._q_cache = (key, st.table, make(), tuple(params))
         return c[2]
 
 

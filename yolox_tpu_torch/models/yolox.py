@@ -159,6 +159,27 @@ class Yolox:
             yield from self._fetch(pending)
 
 
+class ServingFn(nn.Module):
+    """A bound method of a `YoloxModule` with its arguments bound, as an
+    `nn.Module` for `torch.export`: `forward(x)` is `body(x, **kwargs)`,
+    in inference mode when called eagerly and as it is while
+    `torch.export` traces it, so `body` is an undecorated one.
+    `make_serving_fn` binds `module.serve_body`; `cli/export.py` also
+    binds `module.forward_body` (decoded or raw outputs in a fixed int8
+    mode). The module is a submodule, so its parameters are the
+    program's."""
+
+    def __init__(self, body, **kwargs):
+        super().__init__()
+        self.module, self.body, self.kwargs = body.__self__, body, kwargs
+
+    def forward(self, x):
+        if torch.compiler.is_exporting():
+            return self.body(x, **self.kwargs)
+        with torch.inference_mode():
+            return self.body(x, **self.kwargs)
+
+
 class YoloxModule(nn.Module):
     """The network: a PAFPN (or YoloFpn) backbone + decoupled head. Built
     in eval mode."""
@@ -269,6 +290,11 @@ class YoloxModule(nn.Module):
         """Eval forward: decoded (B, n_anchors, 5 + num_classes) float32;
         int8 after `enable_int8`."""
         mode, table = self._int8_enabled or (None, None)
+        return self.forward_body(x, mode, table)
+
+    def forward_body(self, x, mode=None, table=None):
+        """`forward` in int8 `mode` (None, "ladder" or "hbm") at `table`,
+        without the inference-mode decorator: what `torch.export` traces."""
         with self._int8_mode(mode, table):
             fpn_outs = self.backbone(self._image_batch(x, mode))
             return self.head(fpn_outs).float()
@@ -303,6 +329,15 @@ class YoloxModule(nn.Module):
         as int8 codes + per-channel scales, producers requantize in their
         conv's epilogue (the int8-in-HBM mode). Only this call's
         arguments decide the mode, as in the JAX package."""
+        return self.serve_body(x, conf_thre, nms_thre, class_agnostic,
+                               max_det, int8_qtab, int8_hbm_qtab)
+
+    def serve_body(self, x, conf_thre: float = 0.5, nms_thre: float = 0.65,
+                   class_agnostic: bool = False, max_det: int = 256,
+                   int8_qtab: Optional[dict] = None,
+                   int8_hbm_qtab: Optional[dict] = None):
+        """`serve` without the inference-mode decorator: what
+        `torch.export` traces (`make_serving_fn`)."""
         if int8_hbm_qtab is not None:
             mode, table = "hbm", int8_hbm_qtab
         elif int8_qtab is not None:
@@ -315,6 +350,76 @@ class YoloxModule(nn.Module):
         return postprocess_fused_levels(
             outs, grids, strides, self.head.num_classes, conf_thre,
             nms_thre, class_agnostic, max_det)
+
+    def make_serving_fn(self, mesh=None, conf_thre: float = 0.5,
+                        nms_thre: float = 0.65, class_agnostic: bool = False,
+                        max_det: int = 256, int8_qtab: Optional[dict] = None,
+                        int8_hbm_qtab: Optional[dict] = None) -> "ServingFn":
+        """The serving step as an `nn.Module`: `fn(x)` is `serve(x, ...)`
+        with the thresholds, `max_det` and int8 tables bound, returning
+        (dets, valid). It is what `torch.export.export(fn, (x,))` traces
+        (`cli/export.py`); its K1 / K2 / Q1 / Q2 calls become the operators
+        of `ops/library.py`. An int8 table's quantized weights are made
+        by an eager call, so call `fn` before exporting it, and again
+        after changing the parameters in place: the export raises if a
+        block's parameters changed since its weights were made.
+        A serving `mesh` (the image height split across cards) is not
+        ported."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "serving meshes are not ported to yolox_tpu_torch yet "
+                "(ROADMAP.md: the serving meshes, parallel/mesh.py "
+                "serving_mesh)")
+        return ServingFn(self.serve_body, conf_thre=conf_thre,
+                         nms_thre=nms_thre,
+                         class_agnostic=class_agnostic, max_det=max_det,
+                         int8_qtab=int8_qtab, int8_hbm_qtab=int8_hbm_qtab)
+
+    @torch.no_grad()
+    def visualize(self, x, targets, save_prefix: str = "assign_vis_"):
+        """Draw SimOTA assignment results per image into
+        `<save_prefix><b>.png` (the JAX package's `visualize`). x: NHWC
+        float batch (BGR pixel values as in training); targets (B, M, 5).
+        The assignment needs the train-mode forward, whose BatchNorm
+        layers update their running statistics: the module's mode and
+        every buffer are put back as they were."""
+        from yolox_tpu_torch.models.assign import simota_assign
+        from yolox_tpu_torch.utils.visualize import visualize_assign
+
+        was_training = self.training
+        saved = {k: v.clone() for k, v in self.named_buffers()}
+        try:
+            self.train()
+            xd = torch.as_tensor(np.asarray(x), dtype=self.dtype,
+                                 device=self.device)
+            head_out = self.head.forward_train(self.backbone(xd))
+        finally:
+            for k, v in self.named_buffers():
+                v.copy_(saved[k])
+            self.train(was_training)
+        outputs = head_out["outputs"].float()
+        xs, ys = head_out["x_shifts"].float(), head_out["y_shifts"].float()
+        strides = head_out["expanded_strides"].float()
+        tg = torch.as_tensor(np.asarray(targets), dtype=torch.float32,
+                             device=self.device)
+        assign = simota_assign(tg, outputs[..., :4], outputs[..., 4],
+                               outputs[..., 5:], xs, ys, strides,
+                               self.head.num_classes)
+        coords = torch.stack([(xs + 0.5) * strides, (ys + 0.5) * strides],
+                             1).cpu().numpy()
+        fg_all = assign["fg_mask"].cpu().numpy()
+        matched_all = assign["matched_gt"].cpu().numpy()
+        for b in range(outputs.shape[0]):
+            fg = fg_all[b]
+            labels = np.asarray(targets[b])
+            real = labels[labels.sum(-1) > 0]
+            boxes_xyxy = np.stack([
+                real[:, 1] - real[:, 3] / 2, real[:, 2] - real[:, 4] / 2,
+                real[:, 1] + real[:, 3] / 2, real[:, 2] + real[:, 4] / 2,
+            ], 1)
+            img = np.asarray(x[b]).astype(np.uint8)
+            visualize_assign(img, boxes_xyxy, coords[fg], matched_all[b][fg],
+                             f"{save_prefix}{b}.png")
 
     @torch.inference_mode()
     def calibrate_int8(self, batches, percentile: Optional[float] = None

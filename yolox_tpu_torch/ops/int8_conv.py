@@ -36,7 +36,8 @@ the kernels once (`ops/quant.py` caches them per module).
 the plain PyTorch versions, `int8_conv_plain` / `int8_dwconv_plain`, only
 for CPU tensors: the same integer conv as `F.conv2d` in float64 on the
 codes (exact: |acc| <= 5760 * 127^2 < 2^53), then the same epilogue with
-separate torch ops.
+separate torch ops. Under `torch.export` both wrappers call the registered
+operators of `ops/library.py`.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from yolox_tpu_torch.ops import _build
+from yolox_tpu_torch.ops.library import exportable
 from yolox_tpu_torch.ops.stem import activate
 
 _ACT_CODES = {"silu": 0, "relu": 1, "lrelu": 2}
@@ -392,6 +394,7 @@ def epilogue_mismatches(device) -> int:
     return int(count.item())
 
 
+@exportable("int8_conv")
 def int8_conv(x, w, scale, bias, ksize: int, stride: int, act: str,
               out_dtype=torch.float32, out_scale=None):
     """Q1: dense int8 conv, 'same' padding (ksize - 1) // 2. x (B, Cin, H,
@@ -425,6 +428,7 @@ def int8_conv(x, w, scale, bias, ksize: int, stride: int, act: str,
 int8_conv.launches = 0
 
 
+@exportable("int8_dwconv")
 def int8_dwconv(x, w, scale, bias, ksize: int, stride: int, act: str,
                 out_dtype=torch.float32, out_scale=None):
     """Q2: depthwise int8 conv (groups = C), 'same' padding. x (B, C, H,

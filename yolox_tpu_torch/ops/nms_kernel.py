@@ -33,6 +33,7 @@ import torch
 
 from yolox_tpu_torch.ops import _build
 from yolox_tpu_torch.ops.boxes import pairwise_iou_xyxy
+from yolox_tpu_torch.ops.library import exportable
 
 TILE = 64               # boxes a tile side, bits a mask word
 QUAD = 4                # column tiles a block (256 threads)
@@ -159,7 +160,9 @@ def greedy_suppress(iou: torch.Tensor, valid: torch.Tensor,
         suppressed = (sup @ keep.float()[..., None])[..., 0] > 0.5
         new_keep = valid & ~suppressed
         if torch.equal(new_keep, keep):
-            return keep
+            # a new tensor, never `valid` itself: the operator's output
+            # may not alias its input
+            return new_keep
         keep = new_keep
 
 
@@ -170,6 +173,7 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
     return greedy_suppress(pairwise_iou_xyxy(boxes, boxes), valid, thr)
 
 
+@exportable("nms_keep")
 def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, thr: float,
              rows: Optional[int] = None,
              group: Optional[int] = None) -> torch.Tensor:

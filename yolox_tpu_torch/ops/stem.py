@@ -17,7 +17,9 @@ reaches device memory. A float32 image takes a CUDA-core loop in the same
 source.
 
 `stem_conv_bn_act` launches the kernel for CUDA tensors and runs the plain
-PyTorch version, `stem_conv_bn_act_plain`, only for CPU tensors.
+PyTorch version, `stem_conv_bn_act_plain`, only for CPU tensors; under
+`torch.export` it calls the registered operator (`ops/library.py`), which
+runs the same body.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from yolox_tpu_torch.ops import _build
+from yolox_tpu_torch.ops.library import exportable
 
 _IN_CODES = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
 _OUT_CODES = {torch.float32: 1, torch.bfloat16: 2}
@@ -79,6 +82,7 @@ def _check(x, wb, scale, bias, act, out_dtype):
         raise ValueError("stem kernel: inputs must be contiguous")
 
 
+@exportable("stem_conv_bn_act")
 def stem_conv_bn_act(x, wb, scale, bias, act: str = "silu",
                      out_dtype=torch.float32):
     """Fused Focus stem. x (B, H, W, 3) NHWC uint8 / float32 / bfloat16,
