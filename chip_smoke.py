@@ -154,11 +154,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    times and K5 once a device-augmented step; K1 and K2 once a batch or
    call; Q1 73 times an HBM batch and 74 an exported int8 call).
 
+13. (run last) data parallelism (`run_parallel`), yolox-s at full width
+   and depth, 640 px: `remat` against the plain float32 B 16 fused step
+   on one held SimOTA assignment (updates, momentum and BN statistics at
+   `TRAIN_TOL`, every `num_batches_tracked` 1; then ms and peak memory of
+   both); the same step through an NCCL process group of world size 1,
+   bit-equal to the step with no group (deterministic cuDNN); then
+   `PAR_WORLD` gloo ranks spawned on the one card
+   (`torch.multiprocessing`, `parallel_rank`), each on its own half of a
+   B 16 batch: the data-parallel step (float32 and bf16, `fused_bwd`,
+   each half's assignment held) against the mean of two one-process steps
+   in this process (`PAR_TOL`), the ranks' bytes equal after it, each
+   rank's step ms and the gradient all-reduce's ms; 3 augmented steps
+   (bf16, K5) per rank, each rank's batch remade from its seed bit-equal
+   and the ranks equal after each step; the two-rank evaluation of the
+   320-image CLI set at B 32 (16 a rank), its 12 statistics equal to one
+   process's at B 16 (the same batches), timed beside one process at B
+   32; `Trainer` on the CLI set (B 8, bf16, `fused_conv_bwd`,
+   `device_augment`, 2 epochs with evaluations: checkpoints by rank 0
+   only), then a run that rank 1 sends SIGTERM to itself after its first
+   iteration: both ranks leave at that iteration and rank 0 writes the one
+   resume checkpoint. A rank that fails fails the phase. Launch counters
+   are read around every main-path run of both ranks; the phase's wall
+   time is printed.
+
 Then JSON lines with the serve, evaluation, training, augmentation,
-int8, trainer and CLI results and the kernels (each with its launches on
-every main path: `launches`, `launches_eval`, `launches_trainer`,
-`launches_cli`), the `nvidia-smi` name and power limit, and as the last
-line `{"ok": true, "device": {...}}`.
+int8, trainer, CLI and parallel results and the kernels (each with its
+launches on every main path: `launches`, `launches_eval`,
+`launches_trainer`, `launches_cli`, `launches_parallel`), the
+`nvidia-smi` name and power limit, and as the last line `{"ok": true,
+"device": {...}}`.
 
 TF32 is turned off here (cuDNN and matmul) before any comparison with
 float32 references; the package itself never changes global flags.
@@ -4445,6 +4470,739 @@ def run_cli(cfg, rng, lines):
     return totals
 
 
+# ------------------------------------------ data parallelism (phase 13)
+
+PAR_WORLD = 2         # gloo ranks, both on the one card
+PAR_B = 16            # the data-parallel step's global batch: 8 a rank
+PAR_SIZE = 640
+PAR_EVAL_B = CLI_TIME_B   # the evaluation's global batch: 16 a rank
+PAR_TRAINER_B = 8     # the Trainer's global batch on the CLI set: 4 a rank
+PAR_TRAINER_EPOCHS = 2
+PAR_PREEMPT_AT = 0    # rank 1 sends itself SIGTERM after this iteration
+PAR_TIME_REPS = 5     # timed steps (after 2 warm-up steps)
+PAR_TIMEOUT_S = 600   # a collective waiting longer fails the phase
+# the two-rank step against the mean of two one-process steps (one per
+# half): each kind (momentum = gradient + weight decay after a first step,
+# parameter update, BN running statistics) within PAR_TOL of its largest
+# entry; float32 at phase 7's TRAIN_TOL, bf16 at one bf16 ulp (2^-8,
+# phase 6's bf16 allowance for K4's weight gradient)
+PAR_TOL = {"float32": TRAIN_TOL, "bfloat16": 2.0 ** -8}
+
+
+def _zero(counters):
+    _card_sync()
+    for f in counters.values():
+        f.launches = 0
+
+
+def _count(counters):
+    _card_sync()
+    return {k: f.launches for k, f in counters.items()}
+
+
+def _add(total, n):
+    for k in total:
+        total[k] += n[k]
+
+
+def _halves(b=None):
+    """Each rank's rows of a global batch of b (PAR_B)."""
+    per = (b or PAR_B) // PAR_WORLD
+    return [slice(r * per, (r + 1) * per) for r in range(PAR_WORLD)]
+
+
+def _step_record(module, state, p0):
+    """What one step left, on the CPU: the SGD momentum (the gradient plus
+    weight decay after a first step), the parameter updates and the BN
+    running statistics."""
+    opt = state.optimizer
+    params = dict(module.named_parameters())
+    return {
+        "momentum": {n: opt.state[p]["momentum_buffer"].detach().cpu()
+                     for n, p in params.items()},
+        "updates": {n: (p.detach() - p0[n]).cpu() for n, p in params.items()},
+        "stats": {n: b.detach().cpu().clone()
+                  for n, b in module.named_buffers()
+                  if n.endswith(("running_mean", "running_var"))}}
+
+
+def _held_step_record(cfg, card, dtype, x, labels, held, **kw):
+    """One fused step from seeded yolox-s on a held assignment: (the
+    record, losses, the launch counts of the step, the state)."""
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.core import init_train_state, make_train_step
+
+    module = YoloxModule.from_config(cfg, rng_seed=4321, device=card)
+    use_ema = kw.pop("use_ema", False)
+    state = init_train_state(module, use_ema=use_ema)
+    step = make_train_step(module, cfg.num_classes, use_ema=use_ema,
+                           compute_dtype=dtype, fused_bwd=True, **kw)
+    p0 = {n: p.detach().clone() for n, p in module.named_parameters()}
+    counters = _launch_counters()
+    _zero(counters)
+    state, losses = step(state, x, labels, 0.01, assignment=held)
+    n = _count(counters)
+    return (_step_record(module, state, p0),
+            {k: float(v) for k, v in losses.items()}, n, state)
+
+
+def _want(n_convs, **more):
+    want = {"reduce_sums": n_convs, "main_1x1": n_convs, "stem": 0,
+            "nms": 0, "shear_x": 0, "shear_xy": 0, "int8_conv": 0,
+            "int8_dwconv": 0}
+    want.update(more)
+    return want
+
+
+def par_remat(cfg, card, x, labels, held, n_convs, totals):
+    """`remat` against the plain step: the float32 B 16 fused step from
+    seeded yolox-s on one held assignment, updates and momentum within
+    TRAIN_TOL of their largest entry, BN statistics too, losses at
+    TRAIN_LOSS_RTOL, every `num_batches_tracked` at 1; then each one's
+    median ms over PAR_TIME_REPS steps and peak memory (as phase 7 times
+    its steps)."""
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.core import init_train_state, make_train_step
+
+    recs = {}
+    for remat in (False, True):
+        rec, losses, n, state = _held_step_record(
+            cfg, card, torch.float32, x, labels, held, remat=remat)
+        tracked = {int(b) for name, b in state.module.named_buffers()
+                   if name.endswith("num_batches_tracked")}
+        if n != _want(n_convs):
+            raise AssertionError(f"the remat={remat} step launched {n}")
+        if tracked != {1}:
+            raise AssertionError(f"remat={remat}: num_batches_tracked "
+                                 f"{tracked} after one step")
+        if remat:
+            _add(totals, n)
+        recs[remat] = (rec, losses)
+        del state
+    ratios = {kind: tensors_close(recs[True][0][kind], recs[False][0][kind],
+                                  TRAIN_TOL)
+              for kind in ("momentum", "updates", "stats")}
+    ratios["losses"] = _losses_close(recs[True][1], recs[False][1])
+    log("remat against the plain step (float32, B 16, held assignment), "
+        "share of tolerance: " + json.dumps(ratios))
+    if max(ratios.values()) > 1:
+        raise AssertionError("the remat step disagrees with the plain step")
+    out = {"vs_plain_share_of_tol": ratios}
+    for remat in (False, True):
+        module = YoloxModule.from_config(cfg, rng_seed=4321, device=card)
+        state = init_train_state(module)
+        step = make_train_step(module, cfg.num_classes, fused_bwd=True,
+                               remat=remat)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        samples = _event_ms(lambda: step(state, x, labels, 0.01),
+                            PAR_TIME_REPS)
+        key = "remat" if remat else "plain"
+        out[key] = {"median_ms": float(np.median(samples)),
+                    "samples_ms": samples,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del module, state, step
+    log("remat float32 B 16 fused step: " + json.dumps(
+        {k: out[k] for k in ("plain", "remat")}))
+    return out
+
+
+def par_nccl(cfg, card, x, labels, held, n_convs, totals, root):
+    """The float32 B 16 fused step through a process group of world size 1
+    (NCCL on the card) against the same step with no group, from the same
+    seeded model and held assignment, deterministic cuDNN: the same bits
+    in parameters, buffers, momentum and EMA. A second plain step is held
+    to the first the same way (the step itself is repeatable)."""
+    import torch
+
+    from yolox_tpu_torch.parallel import mesh
+
+    backend = "nccl"
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    mesh.init_distributed(backend, f"file://{root}/world1", 1, 0,
+                          device=torch.device("cuda",
+                                              torch.cuda.current_device()),
+                          timeout=PAR_TIMEOUT_S)
+    try:
+        states = {}
+        for name in ("plain", "plain_again", backend):
+            group = torch.distributed.group.WORLD if name == backend else None
+            _, _, n, state = _held_step_record(
+                cfg, card, torch.float32, x, labels, held, use_ema=True,
+                group=group)
+            if n != _want(n_convs):
+                raise AssertionError(f"the {name} step launched {n}")
+            if name == backend:
+                _add(totals, n)
+            states[name] = mesh.state_bytes(state)
+            del state
+    finally:
+        mesh.destroy_distributed()
+        torch.backends.cudnn.deterministic = saved
+    out = {"backend": backend,
+           "plain_repeat_bit_equal": torch.equal(states["plain"],
+                                                 states["plain_again"]),
+           "bit_equal": torch.equal(states["plain"], states[backend]),
+           "state_bytes": int(states["plain"].numel())}
+    log(f"{backend} at world size 1 against one process: " + json.dumps(out))
+    if not (out["bit_equal"] and out["plain_repeat_bit_equal"]):
+        raise AssertionError(f"the {backend} world-1 step is not the "
+                             "one-process step bit for bit")
+    return out
+
+
+def par_oracle(cfg, card, x, labels, held, dtype):
+    """Two one-process steps on the card, one on each half of the batch
+    from the seeded model with that half's held assignment: the mean of
+    their records and of their losses."""
+    recs, losses = [], []
+    for r, half in enumerate(_halves()):
+        rec, loss, _, state = _held_step_record(
+            cfg, card, dtype, x[half], labels[half], held[r])
+        recs.append(rec)
+        losses.append(loss)
+        del state
+    mean = {kind: {k: (recs[0][kind][k] + recs[1][kind][k]) / 2
+                   for k in recs[0][kind]} for kind in recs[0]}
+    return mean, {k: (losses[0][k] + losses[1][k]) / 2 for k in losses[0]}
+
+
+def par_eval_one_process(card, ckpt, n_images):
+    """The one-process evaluations of the timed CLI set (`cli_cfg` on the
+    path): at the ranks' batch (PAR_EVAL_B / PAR_WORLD, the same batches
+    the ranks take: the statistics a two-rank run must equal) and, timed,
+    at PAR_EVAL_B."""
+    import cli_cfg
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tcfg = cli_cfg.CliTimeConfig()
+    module = YoloxModule.from_config(tcfg, device=card)
+    module.load_params(load_checkpoint(ckpt)["model"])
+    ev = tcfg.get_evaluator(PAR_EVAL_B // PAR_WORLD)
+    tcfg.eval(module, ev)
+    stats = np.asarray(ev.stats)
+    ev32 = tcfg.get_evaluator(PAR_EVAL_B)
+    _card_sync()
+    t0 = time.perf_counter()
+    tcfg.eval(module, ev32)
+    _card_sync()
+    wall = time.perf_counter() - t0
+    del module
+    torch.cuda.empty_cache()
+    return stats, {"img_per_s": n_images / wall, "wall_s": wall,
+                   "stats_b32": [float(s) for s in ev32.stats]}
+
+
+# ---- what each rank runs (spawned; `card` is the one device of both)
+
+def par_rank_steps(rank, inp, card, root):
+    """The data-parallel step on this rank's half with its held
+    assignment, float32 and bf16: launches, the rank-mean losses, whether
+    the ranks hold the same bytes after it; rank 0 saves its record."""
+    import torch
+
+    from yolox_tpu_torch.parallel.mesh import ranks_identical
+
+    half = _halves(len(inp["x"]))[rank]
+    x, labels = inp["x"][half].to(card), inp["labels"][half].to(card)
+    held = {k: v.to(card) for k, v in inp["held"][rank].items()}
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        rec, losses, n, state = _held_step_record(
+            inp["cfg"], card, dtype, x, labels, held, use_ema=True,
+            group=torch.distributed.group.WORLD)
+        out[name] = {"launches": n, "losses": losses,
+                     "identical": ranks_identical(state)}
+        if rank == 0:
+            torch.save(rec, Path(root) / f"dp_{name}.pt")
+        del state
+    return out
+
+
+def par_rank_times(rank, inp, card):
+    """This rank's step ms (PAR_TIME_REPS after 2 warm-up steps, both
+    ranks stepping together on the card), then the all-reduce's ms inside
+    3 more steps (synchronised around it), float32 and bf16."""
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.core import init_train_state, make_train_step
+    from yolox_tpu_torch.parallel.mesh import MeanReducer
+
+    half = _halves(len(inp["x"]))[rank]
+    x, labels = inp["x"][half].to(card), inp["labels"][half].to(card)
+    cfg, out = inp["cfg"], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        module = YoloxModule.from_config(cfg, rng_seed=4321, device=card)
+        state = init_train_state(module)
+        step = make_train_step(module, cfg.num_classes, compute_dtype=dtype,
+                               fused_bwd=True,
+                               group=torch.distributed.group.WORLD)
+        torch.distributed.barrier()
+        samples = _event_ms(lambda: step(state, x, labels, 0.01),
+                            PAR_TIME_REPS)
+        reduce_ms, sizes = [], []
+        orig = MeanReducer.__call__
+
+        def timed(self, tensors):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig(self, tensors)
+            torch.cuda.synchronize()
+            reduce_ms.append(1e3 * (time.perf_counter() - t0))
+            sizes.append(sum(t.numel() for t in tensors))
+
+        MeanReducer.__call__ = timed
+        try:
+            for _ in range(3):
+                step(state, x, labels, 0.01)
+        finally:
+            MeanReducer.__call__ = orig
+        out[str(dtype).split(".")[-1]] = {
+            "median_ms": float(np.median(samples)), "samples_ms": samples,
+            "allreduce_ms": reduce_ms, "allreduce_values": sizes[0]}
+        del module, state, step
+    return out
+
+
+def par_rank_augment(rank, inp, card):
+    """3 `make_augmented_train_step` iterations (bf16, fused) on this
+    rank's tiles from this rank's generator (seeded as the Trainer seeds
+    it, `augment_seed`): launches, the batch the step augmented against
+    the same seed's batch made again (outside the counted window), the
+    ranks' batch sums, the ranks' states after each step."""
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.core import (
+        init_train_state,
+        make_augmented_train_step,
+    )
+    from yolox_tpu_torch.core import train_step as ts
+    from yolox_tpu_torch.core.trainer import augment_seed
+    from yolox_tpu_torch.parallel.mesh import (
+        all_gather_objects,
+        ranks_identical,
+    )
+
+    half = _halves(len(inp["x"]))[rank]
+    args = [inp[k][half].to(card) for k in ("tiles", "hw", "tile_labels")]
+    size = tuple(inp["tiles"].shape[2:4])
+    cfg = inp["cfg"]
+    module = YoloxModule.from_config(cfg, rng_seed=4321, device=card)
+    state = init_train_state(module)
+    step = make_augmented_train_step(
+        module, cfg.num_classes, compute_dtype=torch.bfloat16,
+        fused_bwd=True, group=torch.distributed.group.WORLD)
+    gen = torch.Generator(device=card)
+    counters = _launch_counters()
+    calls, orig = [], ts.device_augment_batch
+
+    def recording(*a, **kw):
+        out = orig(*a, **kw)
+        calls.append((a, kw, out))
+        return out
+
+    ts.device_augment_batch = recording
+    recs = []
+    try:
+        for i in range(3):
+            seed = augment_seed(0, rank, i)
+            gen.manual_seed(seed)
+            _zero(counters)
+            state, losses = step(state, *args, gen, 0.01, size)
+            n = _count(counters)
+            a, kw, (imgs, packed) = calls[-1]
+            gen.manual_seed(seed)
+            again = orig(*a[:3], gen, **kw)
+            recs.append({
+                "launches": n,
+                "losses": {k: float(v) for k, v in losses.items()},
+                "deterministic": torch.equal(again[0], imgs)
+                and torch.equal(again[1], packed),
+                "batch_sums": all_gather_objects(float(imgs.float().sum())),
+                "identical": ranks_identical(state)})
+    finally:
+        ts.device_augment_batch = orig
+    return recs
+
+
+def par_rank_eval(rank, inp, card):
+    """The two-rank evaluation of the timed CLI set at PAR_EVAL_B (each
+    rank its batches of PAR_EVAL_B / PAR_WORLD): launches, rank 0's
+    statistics, every rank's wall seconds (both start at a barrier, the
+    model warmed by one forward at the rank's batch)."""
+    import cli_cfg
+    import torch
+
+    from yolox_tpu_torch import YoloxModule
+    from yolox_tpu_torch.parallel.mesh import all_gather_objects
+    from yolox_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tcfg = cli_cfg.CliTimeConfig()
+    module = YoloxModule.from_config(tcfg, device=card)
+    module.load_params(load_checkpoint(inp["ckpt"])["model"])
+    evaluator = tcfg.get_evaluator(PAR_EVAL_B, is_distributed=True)
+    module(np.zeros((PAR_EVAL_B // PAR_WORLD,) + tuple(tcfg.test_size)
+                    + (3,), np.float32))
+    counters = _launch_counters()
+    torch.distributed.barrier()
+    _zero(counters)
+    t0 = time.perf_counter()
+    ap, ap50, _ = tcfg.eval(module, evaluator, True)
+    _card_sync()
+    wall = time.perf_counter() - t0
+    n = _count(counters)
+    return {"launches": n, "batches": len(evaluator.dataloader),
+            "ap": (float(ap), float(ap50)),
+            "stats": None if evaluator.stats is None
+            else [float(s) for s in evaluator.stats],
+            "wall_s": all_gather_objects(wall)}
+
+
+def par_rank_trainer(rank, inp, card, root):
+    """`Trainer` on the CLI set (yolox-s, 640 px, bf16, `fused_conv_bwd`,
+    `device_augment`, global B PAR_TRAINER_B): (a) PAR_TRAINER_EPOCHS
+    epochs with an evaluation after each; (b) a long run that rank 1 sends
+    SIGTERM to itself after iteration PAR_PREEMPT_AT. Per rank: each
+    iteration's and evaluation's launches, LR and loss, the iteration each
+    rank left at, and which checkpoints this rank wrote."""
+    import signal
+    from argparse import Namespace
+
+    import cli_cfg
+
+    from yolox_tpu_torch.core import trainer as tr
+    from yolox_tpu_torch.utils.checkpoint import load_checkpoint
+
+    counters = _launch_counters()
+    writes, save = [], tr.save_checkpoint
+
+    def recording(state, is_best, save_dir, name=""):
+        writes.append(name)
+        return save(state, is_best, save_dir, name)
+
+    tr.save_checkpoint = recording
+    out = {}
+    try:
+        for name, epochs in (("par", PAR_TRAINER_EPOCHS),
+                             ("par_preempt", 100)):
+            tcfg = cli_cfg.CliConfig()
+            tcfg.max_epoch, tcfg.fused_conv_bwd = epochs, True
+            tcfg.device_augment = True
+            tcfg.output_dir = str(Path(root) / "trainer")
+            args = Namespace(batch_size=PAR_TRAINER_B, fp16=True,
+                             cache=None, logger="tensorboard", ckpt=None,
+                             resume=False, start_epoch=None, name=name,
+                             device=card)
+            trainer = tcfg.get_trainer(args)
+            rec = instrument_trainer(trainer, counters)
+            exits = []
+            if name == "par_preempt":
+                after, handle = trainer.after_iter, \
+                    trainer._maybe_handle_preemption
+
+                def after_iter():
+                    after()
+                    if rank == 1 and trainer.progress_in_iter == \
+                            PAR_PREEMPT_AT:
+                        os.kill(os.getpid(), signal.SIGTERM)
+
+                def handled():
+                    try:
+                        handle()
+                    except tr.PreemptionExit:
+                        exits.append(trainer.progress_in_iter)
+                        raise
+
+                trainer.after_iter = after_iter
+                trainer._maybe_handle_preemption = handled
+            n0 = len(writes)
+            t0 = time.perf_counter()
+            trainer.train()
+            res = {"wall_s": time.perf_counter() - t0,
+                   "max_iter": trainer.max_iter, "exits": exits,
+                   "writes": writes[n0:], "evals": rec["evals"],
+                   "iters": [{k: it[k] for k in ("progress", "epoch", "lr",
+                                                 "loss", "launches", "ms",
+                                                 "device_augment")}
+                             for it in rec["iters"]]}
+            if name == "par":
+                sched = trainer.exp.get_lr_scheduler(
+                    trainer.exp.basic_lr_per_img * PAR_TRAINER_B,
+                    trainer.max_iter)
+                res["lr_on_schedule"] = all(
+                    it["lr"] == sched.update_lr(it["progress"] + 1)
+                    for it in rec["iters"])
+            latest = Path(trainer.file_name) / "latest_ckpt.pth"
+            if rank == 0 and name == "par_preempt":
+                res["resume_start_epoch"] = load_checkpoint(
+                    str(latest))["start_epoch"]
+            out[name] = res
+            del trainer
+    finally:
+        tr.save_checkpoint = save
+    return out
+
+
+def parallel_rank(rank, root, card):
+    """One of phase 13's PAR_WORLD gloo ranks, all on `card`: the
+    data-parallel step, its times, the augmented step, the evaluation and
+    the Trainer; what it saw goes to `root/rank<r>.pt`."""
+    import torch
+
+    from yolox_tpu_torch.parallel import mesh
+
+    global CARD
+    CARD = card  # this process's phases (`instrument_trainer`) run there
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inp = torch.load(Path(root) / "inputs.pt", weights_only=False)
+    sys.path.insert(0, inp["cli_root"])
+    mesh.init_distributed("gloo", f"file://{root}/rendezvous", PAR_WORLD,
+                          rank, device="cuda:0", timeout=PAR_TIMEOUT_S)
+    out = {"rank": rank}
+    try:
+        out["steps"] = par_rank_steps(rank, inp, card, root)
+        out["times"] = par_rank_times(rank, inp, card)
+        out["augment"] = par_rank_augment(rank, inp, card)
+        out["eval"] = par_rank_eval(rank, inp, card)
+        out["trainer"] = par_rank_trainer(rank, inp, card, root)
+    finally:
+        mesh.destroy_distributed()
+    torch.save(out, Path(root) / f"rank{rank}.pt")
+
+
+# ---- phase 13 in the parent: the oracles, then the ranks, then the checks
+
+def par_check_steps(ranks, oracles, root, n_convs):
+    import torch
+
+    out = {}
+    for name, (mean, mean_losses) in oracles.items():
+        got = torch.load(Path(root) / f"dp_{name}.pt")
+        ratios = {kind: tensors_close(got[kind], mean[kind], PAR_TOL[name])
+                  for kind in ("momentum", "updates", "stats")}
+        recs = [r["steps"][name] for r in ranks]
+        ratios["losses"] = _losses_close(recs[0]["losses"], mean_losses)
+        out[name] = {"share_of_tol": ratios,
+                     "identical": [r["identical"] for r in recs],
+                     "losses": recs[0]["losses"]}
+        log(f"two-rank {name} step against the mean of two one-process "
+            f"steps: " + json.dumps(out[name]))
+        if max(ratios.values()) > 1:
+            raise AssertionError(f"the two-rank {name} step is not the mean "
+                                 "of the one-process steps")
+        if not all(out[name]["identical"]) or \
+                recs[0]["losses"] != recs[1]["losses"]:
+            raise AssertionError(f"the ranks differ after the {name} step")
+        for r in recs:
+            if r["launches"] != _want(n_convs):
+                raise AssertionError(f"a two-rank step launched "
+                                     f"{r['launches']}")
+    return out
+
+
+def par_check_augment(ranks, n_convs):
+    for r in ranks:
+        for i, it in enumerate(r["augment"]):
+            if it["launches"] != _want(n_convs, shear_xy=1):
+                raise AssertionError(f"rank {r['rank']} augmented step {i} "
+                                     f"launched {it['launches']}")
+            if not (it["deterministic"] and it["identical"]):
+                raise AssertionError(f"rank {r['rank']} augmented step {i}: "
+                                     f"{it}")
+            if len(set(it["batch_sums"])) != PAR_WORLD:
+                raise AssertionError("two ranks augmented the same batch")
+            if not all(np.isfinite(v) for v in it["losses"].values()):
+                raise AssertionError("an augmented step's loss is not finite")
+    out = [it["losses"]["total_loss"] for it in ranks[0]["augment"]]
+    log(f"two-rank augmented steps: deterministic under each rank's seed, "
+        f"ranks identical after each, total losses {out}")
+    return out
+
+
+def par_check_eval(ranks, stats_one, n_batches):
+    r0, r1 = ranks[0]["eval"], ranks[1]["eval"]
+    if r1["ap"] != (0.0, 0.0) or r1["stats"] is not None:
+        raise AssertionError(f"rank 1's evaluation returned {r1['ap']}")
+    if not np.array_equal(np.asarray(r0["stats"]), stats_one):
+        raise AssertionError(f"two-rank statistics {r0['stats']} differ from "
+                             f"one process's {list(stats_one)}")
+    for r in ranks:
+        b = r["eval"]["batches"]
+        if r["eval"]["launches"] != _want(0, stem=b, nms=b):
+            raise AssertionError(f"rank {r['rank']} evaluation launched "
+                                 f"{r['eval']['launches']}")
+    if sum(r["eval"]["batches"] for r in ranks) != n_batches:
+        raise AssertionError("the ranks did not share the batches")
+    log(f"two-rank evaluation: the 12 statistics equal one process's at the "
+        f"same batches; AP50:95 {r0['ap'][0]!r}")
+
+
+def par_check_trainer(ranks, n_convs, eval_batches):
+    for r in ranks:
+        a = r["trainer"]["par"]
+        if len(a["iters"]) != a["max_iter"] * PAR_TRAINER_EPOCHS or \
+                not a["lr_on_schedule"]:
+            raise AssertionError(f"rank {r['rank']} ran {len(a['iters'])} "
+                                 f"iterations, LR on the schedule: "
+                                 f"{a['lr_on_schedule']}")
+        for it in a["iters"]:
+            k5 = int(it["device_augment"])
+            if it["launches"] != _want(n_convs, shear_xy=k5) or \
+                    not np.isfinite(it["loss"]):
+                raise AssertionError(f"rank {r['rank']} trainer iteration "
+                                     f"{it}")
+        for ev in a["evals"]:
+            b = eval_batches[r["rank"]]
+            if ev["launches"] != _want(0, stem=b, nms=b):
+                raise AssertionError(f"rank {r['rank']} trainer evaluation "
+                                     f"launched {ev['launches']}")
+        p = r["trainer"]["par_preempt"]
+        if p["exits"] != [PAR_PREEMPT_AT]:
+            raise AssertionError(f"rank {r['rank']} left the preempted run "
+                                 f"at {p['exits']}, not {PAR_PREEMPT_AT}")
+    a0, a1 = (r["trainer"]["par"] for r in ranks)
+    if not a0["writes"] or a1["writes"]:
+        raise AssertionError(f"checkpoints written by rank 0: {a0['writes']},"
+                             f" rank 1: {a1['writes']}")
+    p0, p1 = (r["trainer"]["par_preempt"] for r in ranks)
+    if p0["writes"] != ["latest"] or p1["writes"] or \
+            p0["resume_start_epoch"] != 0:
+        raise AssertionError(f"the preempted run wrote {p0['writes']} / "
+                             f"{p1['writes']}, resume epoch "
+                             f"{p0.get('resume_start_epoch')}")
+    if [it["loss"] for it in a0["iters"]] != \
+            [it["loss"] for it in a1["iters"]]:
+        raise AssertionError("the ranks logged different losses")
+    log(f"two-rank Trainer: {len(a0['iters'])} iterations a rank, "
+        f"{len(a0['evals'])} evaluations, checkpoints {a0['writes']} by rank "
+        f"0 only; SIGTERM to rank 1 after iteration {PAR_PREEMPT_AT}: both "
+        f"left there, rank 0 wrote {p0['writes']} (resume at epoch "
+        f"{p0['resume_start_epoch']})")
+    return {"par_wall_s": [r["trainer"]["par"]["wall_s"] for r in ranks],
+            "median_iter_ms": [float(np.median(
+                [it["ms"] for it in r["trainer"]["par"]["iters"][1:]]))
+                for r in ranks],
+            "losses": [it["loss"] for it in a0["iters"]],
+            "checkpoints": a0["writes"],
+            "preempt": {"exits": [r["trainer"]["par_preempt"]["exits"]
+                                  for r in ranks],
+                        "writes": p0["writes"]}}
+
+
+def _rank_launches(r):
+    """A rank's launches over its main-path runs."""
+    total = dict.fromkeys(_launch_counters(), 0)
+    for name in r["steps"]:
+        _add(total, r["steps"][name]["launches"])
+    for it in r["augment"]:
+        _add(total, it["launches"])
+    _add(total, r["eval"]["launches"])
+    for run in r["trainer"].values():
+        for it in run["iters"] + run["evals"]:
+            _add(total, it["launches"])
+    return total
+
+
+def run_parallel(cfg, rng, n_convs, lines):
+    """Phase 13: data parallelism on the card. Returns each kernel's
+    launches summed over the phase's main-path runs (both ranks)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from yolox_tpu_torch import Yolox, YoloxModule, YoloxProcessor
+    from yolox_tpu_torch.models.weights import save_pth_state_dict
+
+    t_phase = time.perf_counter()
+    card = CARD
+    if torch.device(card).type != "cuda":
+        raise RuntimeError(f"phase 13 runs its ranks on a CUDA device, not "
+                           f"{card}: its launch counts come from the kernels")
+    totals = dict.fromkeys(_launch_counters(), 0)
+    x = rng.uniform(0, 255, (PAR_B, PAR_SIZE, PAR_SIZE, 3)).astype(np.float32)
+    labels = synthetic_labels(rng, PAR_B, PAR_SIZE)
+    tiles, hw, tile_labels = synthetic_tiles(rng, PAR_B, PAR_SIZE)
+    xg, lg = torch.from_numpy(x).to(card), torch.from_numpy(labels).to(card)
+    base = YoloxModule.from_config(cfg, rng_seed=4321, device=card)
+    held = [_assignment(base, xg[h], lg[h], cfg.num_classes)
+            for h in _halves()]
+    full = _assignment(base, xg, lg, cfg.num_classes)
+    del base
+    res = {"card": nvidia_smi(), "world": PAR_WORLD, "batch": PAR_B, "size": PAR_SIZE}
+    res["remat"] = par_remat(cfg, card, xg, lg, full, n_convs, totals)
+    with tempfile.TemporaryDirectory() as root:
+        res["world_size_1"] = par_nccl(cfg, card, xg, lg, full, n_convs,
+                                       totals, root)
+        oracles = {str(dt).split(".")[-1]: par_oracle(cfg, card, xg, lg,
+                                                      held, dt)
+                   for dt in (torch.float32, torch.bfloat16)}
+        cli_root = Path(root) / "cli"
+        cli_root.mkdir()
+        module = spread_scores(
+            YoloxModule.from_config(cfg, rng_seed=4321, device=card),
+            np.random.default_rng(7).integers(0, 256, (2, 640, 640, 3),
+                                              dtype=np.uint8))
+        ckpt = str(cli_root / "yolox_s_seed4321.pth")
+        save_pth_state_dict(module.state_dict(), ckpt)
+        cli_data(str(cli_root), rng, Yolox(module, YoloxProcessor(cfg)))
+        del module
+        try:
+            stats_one, res["eval_one_process"] = par_eval_one_process(
+                card, ckpt, CLI_TIME_N)
+            torch.save({"cfg": cfg, "x": torch.from_numpy(x),
+                        "labels": torch.from_numpy(labels),
+                        "held": [{k: v.cpu() for k, v in h.items()}
+                                 for h in held],
+                        "tiles": torch.from_numpy(tiles),
+                        "hw": torch.from_numpy(hw),
+                        "tile_labels": torch.from_numpy(tile_labels),
+                        "cli_root": str(cli_root), "ckpt": ckpt},
+                       Path(root) / "inputs.pt")
+            del xg, lg
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            mp.spawn(parallel_rank, args=(root, card), nprocs=PAR_WORLD,
+                     join=True)
+            res["ranks_s"] = time.perf_counter() - t0
+            ranks = [torch.load(Path(root) / f"rank{r}.pt",
+                                weights_only=False)
+                     for r in range(PAR_WORLD)]
+            res["steps"] = par_check_steps(ranks, oracles, root, n_convs)
+        finally:
+            sys.path.remove(str(cli_root))
+            sys.modules.pop("cli_cfg", None)
+    res["step_times"] = [r["times"] for r in ranks]
+    res["augment_losses"] = par_check_augment(ranks, n_convs)
+    n_batches = -(-CLI_TIME_N // (PAR_EVAL_B // PAR_WORLD))
+    par_check_eval(ranks, stats_one, n_batches)
+    res["eval_two_ranks"] = {
+        "img_per_s": CLI_TIME_N / max(ranks[0]["eval"]["wall_s"]),
+        "wall_s": ranks[0]["eval"]["wall_s"],
+        "stats": ranks[0]["eval"]["stats"]}
+    per_rank = PAR_TRAINER_B // PAR_WORLD
+    eval_batches = [len(range(r, -(-CLI_N // per_rank), PAR_WORLD))
+                    for r in range(PAR_WORLD)]
+    res["trainer"] = par_check_trainer(ranks, n_convs, eval_batches)
+    for r in ranks:
+        _add(totals, _rank_launches(r))
+    res["launches"] = totals
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 13 (parallel) wall: {res['wall_s']:.1f} s")
+    lines.append({"parallel": res})
+    return totals
+
+
 def main() -> int:
     try:
         import torch
@@ -4496,11 +5254,13 @@ def main() -> int:
     trainer_launches = run_trainer(
         cfg, len(shapes), plain["bfloat16_fused"].get("device_ms"), lines)
     cli_launches = run_cli(cfg, rng, lines)
+    parallel_launches = run_parallel(cfg, rng, len(shapes), lines)
     for entry in kernels:
         key = {"stem_conv_bn_act": "stem", "nms_keep": "nms"}.get(
             entry["name"], entry["name"])
         entry["launches_trainer"] = trainer_launches[key]
         entry["launches_cli"] = cli_launches[key]
+        entry["launches_parallel"] = parallel_launches[key]
     for line in lines:
         log(json.dumps(line))
     log(json.dumps({"kernels": kernels}))

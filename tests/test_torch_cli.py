@@ -53,6 +53,36 @@ class {cls}({base}):
 """
 
 
+# the port's tiny config, recording in its run directory each rank's
+# "rank/world" (ranks.txt) and which rank wrote each checkpoint
+# (writes.txt)
+_RANKS_CFG = """
+
+class TorchTinyRanks(TorchTiny):
+    def get_trainer(self, args):
+        import os
+
+        import torch.distributed as dist
+
+        import yolox_tpu_torch.core.trainer as trainer
+
+        rank, world = dist.get_rank(), dist.get_world_size()
+        run = os.path.join(self.output_dir, args.name)
+        os.makedirs(run, exist_ok=True)
+        with open(os.path.join(run, "ranks.txt"), "a") as f:
+            f.write(f"{rank}/{world}\\n")
+        save = trainer.save_checkpoint
+
+        def recording(state, is_best, save_dir, name=""):
+            with open(os.path.join(run, "writes.txt"), "a") as f:
+                f.write(f"{rank}\\n")
+            return save(state, is_best, save_dir, name)
+
+        trainer.save_checkpoint = recording
+        return super().get_trainer(args)
+"""
+
+
 @pytest.fixture(scope="module")
 def cfgs(coco_dir, tmp_path_factory):
     """(port config name, JAX config name, work dir): the same tiny config
@@ -65,7 +95,7 @@ def cfgs(coco_dir, tmp_path_factory):
         for cls, base, pkg in (
             ("TorchTiny", "yolox_tpu_torch.YoloxConfig", "yolox_tpu_torch"),
             ("JaxTiny", "yolox_tpu.YoloxConfig", "yolox_tpu")))
-    (root / "tiny_cli_cfg.py").write_text(text)
+    (root / "tiny_cli_cfg.py").write_text(text + _RANKS_CFG)
     mp = pytest.MonkeyPatch()
     mp.syspath_prepend(str(root))
     yield "tiny_cli_cfg:TorchTiny", "tiny_cli_cfg:JaxTiny", root
@@ -196,15 +226,78 @@ def test_resolve_config_and_opts_match_jax(cfgs, name):
         tutils.parse_model_config_opts(["novalue"])
 
 
-@pytest.mark.parametrize("command,flags", [
-    ("train", ["-d", "2"]), ("train", ["--num_machines", "2"]),
-    ("train", ["--dist-url", "tcp://localhost:1234"]),
-    ("eval", ["-d", "4"]), ("eval", ["--num_machines", "2"]),
-    ("eval", ["--dist-url", "tcp://localhost:1234"]),
+_URL = "tcp://localhost:1234"
+
+
+@pytest.mark.parametrize("command,flags,want", [
+    ("train", ["-d", "2"], (2, 2, 0)),
+    ("train", ["--num_machines", "2", "--machine_rank", "1", "--dist-url",
+               _URL], (1, 2, 1)),
+    ("train", ["--dist-url", _URL], (1, 1, 0)),
+    ("eval", ["-d", "4"], (4, 4, 0)),
+    ("eval", ["--num_machines", "2", "--machine_rank", "1", "-d", "2",
+              "--dist-url", _URL], (2, 4, 2)),
+    ("eval", ["--dist-url", _URL], (1, 1, 0)),
 ])
-def test_multi_process_flags_raise(cfgs, command, flags):
-    with pytest.raises(NotImplementedError, match="M7, second slice"):
-        torch_main([command, "-c", cfgs[0], "--device", "cpu"] + flags)
+def test_multi_process_flags_launch(cfgs, command, flags, want):
+    """-d, --num_machines, --machine_rank and --dist-url make the launch
+    plan: this machine's processes, the world size, the first rank; gloo
+    with --device cpu; a free local port when one machine runs several
+    processes without --dist-url."""
+    import importlib
+
+    from yolox_tpu_torch.cli.utils import launch_plan
+
+    cmd = importlib.import_module(f"yolox_tpu_torch.cli.{command}")
+    args = cmd.make_parser().parse_args(
+        ["-c", cfgs[0], "--device", "cpu"] + flags)
+    plan = launch_plan(args)
+    assert (plan.nprocs, plan.world_size, plan.first_rank) == want
+    assert plan.backend == "gloo"
+    if "--dist-url" in flags:
+        assert plan.dist_url == _URL
+    else:
+        assert plan.dist_url.startswith("tcp://127.0.0.1:")
+
+
+def test_devices_flag_on_cuda(cfgs, monkeypatch):
+    """On CUDA: -d defaults to every local card, one NCCL process each;
+    more than the machine has raises; none and no -d is one process."""
+    from yolox_tpu_torch.cli import train
+    from yolox_tpu_torch.cli.utils import launch_plan
+
+    parse = train.make_parser().parse_args
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    plan = launch_plan(parse(["-c", cfgs[0]]))
+    assert (plan.nprocs, plan.world_size, plan.backend) == (4, 4, "nccl")
+    with pytest.raises(ValueError, match="has 4 CUDA device"):
+        launch_plan(parse(["-c", cfgs[0], "-d", "5"]))
+    with pytest.raises(ValueError, match="needs --dist-url"):
+        launch_plan(parse(["-c", cfgs[0], "--num_machines", "2"]))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    assert launch_plan(parse(["-c", cfgs[0]])).backend is None
+
+
+def test_train_in_two_processes_on_the_cpu(cfgs, monkeypatch):
+    """`train --device cpu -d 2 -b 4`: two gloo ranks of two images each
+    train the epoch's 3 iterations and evaluate; rank 0 alone writes the
+    checkpoints."""
+    from yolox_tpu_torch.utils.checkpoint import load_checkpoint
+
+    name, _, root = cfgs
+    monkeypatch.setenv("OMP_NUM_THREADS", str(max(
+        1, tests._torch_threads.cpu_share() // 2)))
+    assert torch_main(["train", "-c", "tiny_cli_cfg:TorchTinyRanks",
+                       "--device", "cpu", "-d", "2", "-b", "4", "-n",
+                       "dp_run"]) == 0
+    out = root / "out" / "dp_run"
+    writes = (out / "writes.txt").read_text().split()
+    assert writes and set(writes) == {"0"}
+    ranks = (out / "ranks.txt").read_text().split()
+    assert sorted(ranks) == ["0/2", "1/2"]
+    ckpt = load_checkpoint(str(out / "latest_ckpt.pth"))
+    assert ckpt["start_epoch"] == 1
+    assert "iter: 3/3" in (out / "train_log.txt").read_text()
 
 
 def test_no_card_and_no_device_raises(cfgs, ckpt):

@@ -145,9 +145,16 @@ def test_sampler_streams_equal_jax(seed, rank):
                                             world_size=2), 4, seed=seed)
     tb = YoloBatchSampler(InfiniteSampler(23, seed=seed, rank=rank,
                                           world_size=2), 4, seed=seed)
-    assert list(itertools.islice(iter(tb), 5)) == \
-        list(itertools.islice(iter(jb), 5))
+    got = sum(itertools.islice(iter(tb), 5), [])
+    want = sum(itertools.islice(iter(jb), 5), [])
+    assert [t[:2] for t in got] == [t[:2] for t in want]
     assert len(tb) == len(jb)
+    # a sample's seed is its place in the global stream (JAX counts the
+    # place within the process): the one-process stream's seeds at this
+    # rank's places
+    one = sum(itertools.islice(iter(JYoloBatchSampler(
+        JInfiniteSampler(23, seed=seed), 4, seed=seed)), 10), [])
+    assert got == one[rank::2]
 
 
 def test_concat_dataset_routing():

@@ -466,12 +466,10 @@ def test_config_factories_build_the_evaluation(coco_dir):
     ap, ap50, summary = cfg.eval(module, evaluator)
     assert 0.0 <= ap <= ap50 <= 1.0 and "Average Precision" in summary
     assert evaluator.matcher == "native"
-    with pytest.raises(NotImplementedError, match="M7"):
-        import yolox_tpu_torch.evaluators.coco_evaluator as ce
-
-        orig = ce.process_rank_and_count
-        ce.process_rank_and_count = lambda: (0, 2)
-        try:
-            cfg.eval(module, evaluator, is_distributed=True)
-        finally:
-            ce.process_rank_and_count = orig
+    # is_distributed with no process group: one rank, nothing to gather
+    assert cfg.get_eval_loader(5, is_distributed=True).batch_sampler \
+        .world_size == 1
+    ap_d, ap50_d, summary_d = cfg.eval(module, cfg.get_evaluator(
+        4, is_distributed=True), is_distributed=True)
+    assert (ap_d, ap50_d) == (ap, ap50)
+    assert summary_d.split("\n", 1)[1] == summary.split("\n", 1)[1]

@@ -5,6 +5,10 @@ Same flags (--conf/--nms/--tsize/--fuse/--fp16/--int8/--int8-hbm/--legacy/
 `out/<name>/best_ckpt.pth`), runs the COCO evaluator on the module's
 device (K1 and K2 each launch once a batch; with --int8 / --int8-hbm the
 convs run on Q1 / Q2), prints AP50:95/AP50 and the per-class tables.
+`-d`, `--num_machines`, `--machine_rank` and `--dist-url` evaluate in
+several processes as `train` trains: each rank infers on its share of
+the batches (`-b` is the global batch) and rank 0 computes the AP from
+the gathered detections.
 """
 
 from __future__ import annotations
@@ -15,8 +19,8 @@ import sys
 
 from yolox_tpu_torch.cli.utils import (
     add_device_flag,
+    launch,
     parse_model_config_opts,
-    refuse_multi_process_flags,
     resolve_config,
 )
 from yolox_tpu_torch.config import validate_config
@@ -80,11 +84,13 @@ def run_eval(config, args):
     import torch
 
     from yolox_tpu_torch.models.yolox import YoloxModule
+    from yolox_tpu_torch.parallel.mesh import process_count
     from yolox_tpu_torch.utils.checkpoint import load_checkpoint
     from yolox_tpu_torch.utils.model_utils import fuse_model, get_model_info
 
+    is_distributed = process_count() > 1
     evaluator = config.get_evaluator(
-        batch_size=args.batch_size, is_distributed=False,
+        batch_size=args.batch_size, is_distributed=is_distributed,
         testdev=args.test, legacy=args.legacy)
 
     dtype = torch.bfloat16 if args.fp16 else torch.float32
@@ -114,14 +120,19 @@ def run_eval(config, args):
                     f"mode={'hbm' if args.int8_hbm else 'ladder'}).")
 
     ap50_95, ap50, summary = config.eval(
-        module, evaluator, False, half=args.fp16)
+        module, evaluator, is_distributed, half=args.fp16)
     logger.info("\n" + str(summary))
     return ap50_95, ap50, summary
 
 
 def main(argv=None) -> int:
-    args = make_parser().parse_args(argv)
-    refuse_multi_process_flags(args)
+    launch(run, make_parser().parse_args(argv))
+    return 0
+
+
+def run(args):
+    """The command in one process (a rank, under `launch`)."""
+    from yolox_tpu_torch.parallel.mesh import process_index
 
     config = resolve_config(args.config)
     config.update(parse_model_config_opts(args.opts))
@@ -138,14 +149,14 @@ def main(argv=None) -> int:
         args.name = config.name
 
     setup_logger(os.path.join(config.output_dir, args.name),
-                 filename="eval_log.txt", capture_std=True)
+                 rank=process_index(), filename="eval_log.txt",
+                 capture_std=True)
     try:
-        run_eval(config, args)
+        return run_eval(config, args)
     finally:
         from yolox_tpu_torch.utils.logger import restore_sys_output
 
         restore_sys_output()
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
 """`yolox-tpu-torch train`, the port's counterpart of `yolox_tpu/cli/train.py`.
 
 Same flag surface (-c/-b/--resume/--ckpt/-e/--fp16/--cache/-l/-D/--seed),
-plus --device. Training runs in one process on one device: `-d > 1`,
-`--num_machines > 1` and `--dist-url` raise (data-parallel training is
-ROADMAP M7's second slice). `-D fused_conv_bwd=True` runs the 1x1 convs'
-backward on K3 / K4, `-D device_augment=True` the augmentation's shear on
-K5.
+plus --device. `-d N` trains data-parallel in N processes on this machine,
+one a device (every CUDA device by default; gloo processes with --device
+cpu); `--num_machines`, `--machine_rank` and `--dist-url` (tcp://host:port
+of machine 0) span machines, ranks `machine_rank * N + i`. `-b` is the
+global batch. `-D fused_conv_bwd=True` runs the 1x1 convs' backward on K3
+/ K4, `-D device_augment=True` the augmentation's shear on K5,
+`-D remat=True` the forward's stages under activation checkpointing.
 """
 
 from __future__ import annotations
@@ -16,8 +18,8 @@ import sys
 
 from yolox_tpu_torch.cli.utils import (
     add_device_flag,
+    launch,
     parse_model_config_opts,
-    refuse_multi_process_flags,
     resolve_config,
 )
 from yolox_tpu_torch.config import validate_config
@@ -33,16 +35,18 @@ def make_parser():
                         help="named model config (e.g. yolox-s) or "
                              "module:ClassName")
     parser.add_argument("-b", "--batch-size", type=int, default=64,
-                        help="batch size")
+                        help="global batch size across all processes")
     parser.add_argument("-d", "--devices", type=int, default=None,
-                        help="number of devices (one process: 1)")
+                        help="processes on this machine, one a device "
+                             "(default: every local CUDA device)")
     parser.add_argument("--num_machines", type=int, default=1,
-                        help="number of hosts (one process: 1)")
+                        help="number of machines")
     parser.add_argument("--machine_rank", type=int, default=0,
-                        help="host rank")
+                        help="this machine's rank")
     parser.add_argument("--dist-url", type=str, default=None,
-                        help="rendezvous address for several processes "
-                             "(not available yet)")
+                        help="rendezvous address of the process group "
+                             "(tcp://host:port); a free local port when "
+                             "one machine runs several processes")
     parser.add_argument("--resume", action="store_true",
                         help="resume from latest checkpoint")
     parser.add_argument("--ckpt", type=str, default=None,
@@ -96,9 +100,12 @@ def train(config, args):
 
 
 def main(argv=None) -> int:
-    args = make_parser().parse_args(argv)
-    refuse_multi_process_flags(args)
+    launch(run, make_parser().parse_args(argv))
+    return 0
 
+
+def run(args):
+    """The command in one process (a rank, under `launch`)."""
     config = resolve_config(args.config)
     config.update(parse_model_config_opts(args.opts))
     if args.seed is not None:
@@ -113,8 +120,7 @@ def main(argv=None) -> int:
         config.dataset = config.get_dataset(cache=True,
                                             cache_type=args.cache)
 
-    train(config, args)
-    return 0
+    return train(config, args)
 
 
 if __name__ == "__main__":

@@ -3,14 +3,15 @@
 `resolve_config`: a named config (hyphen/underscore tolerant) or a
 `module:ClassName` path to a user subclass of the port's `YoloxConfig`.
 `parse_model_config_opts`: `-D key=value` pairs -> dict.
-`add_device_flag`: the port's `--device` flag; `refuse_multi_process_flags`:
-the flags that need several processes raise.
+`add_device_flag`: the port's `--device` flag. `launch`: run a command
+in every process of a data-parallel run (`-d`, `--num_machines`,
+`--machine_rank`, `--dist-url`).
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 from yolox_tpu_torch.config import YoloxConfig
 
@@ -51,15 +52,93 @@ def add_device_flag(parser) -> None:
                              "cpu runs the kernels' plain versions)")
 
 
-def refuse_multi_process_flags(args) -> None:
-    """Refuse the flags that need several processes: data-parallel
-    training and evaluation come with a later slice of the port."""
-    several = (getattr(args, "num_machines", 1) > 1
-               or (getattr(args, "devices", None) or 1) > 1
-               or getattr(args, "dist_url", None) is not None)
-    if several:
-        raise NotImplementedError(
-            "--num_machines > 1, -d > 1 and --dist-url need several "
-            "processes (torch.distributed), which yolox_tpu_torch does not "
-            "have yet: ROADMAP.md M7, second slice (data-parallel "
-            "training); run in one process on one device")
+def local_processes(args) -> int:
+    """`-d`: the processes of this machine, one a device; by default every
+    local CUDA device (one process on the CPU, or where there is none:
+    the command then finds no device and says so). On CUDA, more than
+    the machine has raises; on the CPU any number of gloo processes
+    run."""
+    import torch
+
+    n = args.devices
+    if getattr(args, "device", None) == "cpu":
+        return n or 1
+    have = torch.cuda.device_count()
+    if n is None:
+        return max(have, 1)
+    if n > have:
+        raise ValueError(
+            f"-d {n}: this machine has {have} CUDA device(s); run at most "
+            f"{have} processes, or --device cpu for gloo processes on the CPU")
+    return n
+
+
+class LaunchPlan(NamedTuple):
+    nprocs: int        # processes started on this machine
+    world_size: int
+    first_rank: int    # the rank of this machine's first process
+    backend: Optional[str]   # None: one process, no process group
+    dist_url: Optional[str]
+
+
+def launch_plan(args) -> LaunchPlan:
+    """What `launch` runs: `-d` processes here with ranks machine_rank * d
+    + i of d * num_machines; NCCL on CUDA, gloo with `--device cpu`. One
+    process and no `--dist-url` makes no process group; one machine and no
+    `--dist-url` rendezvous at a free local port."""
+    from yolox_tpu_torch.parallel.mesh import default_backend, free_port
+
+    n = local_processes(args)
+    world = n * args.num_machines
+    if not 0 <= args.machine_rank < args.num_machines:
+        raise ValueError(f"--machine_rank {args.machine_rank} is outside "
+                         f"the {args.num_machines} machine(s)")
+    if world == 1 and args.dist_url is None:
+        return LaunchPlan(1, 1, 0, None, None)
+    url = args.dist_url
+    if url is None:
+        if args.num_machines > 1:
+            raise ValueError("--num_machines > 1 needs --dist-url "
+                             "(tcp://host:port of machine 0)")
+        url = f"tcp://127.0.0.1:{free_port()}"
+    backend = default_backend(getattr(args, "device", None) or "cuda")
+    return LaunchPlan(n, world, args.machine_rank * n, backend, url)
+
+
+def launch(fn, args) -> None:
+    """fn(args) in every process of this machine's share of the run
+    (`launch_plan`): in this process when it is the only one, else in
+    `nprocs` spawned processes, each of which joins the process group
+    (its CUDA device is the i-th local one), waits for the other ranks and
+    leaves the group when fn returns. A process that fails makes this
+    raise. fn must be importable (it is pickled by name)."""
+    plan = launch_plan(args)
+    if plan.backend is None:
+        fn(args)
+    elif plan.nprocs == 1:
+        _run_rank(0, fn, args, plan)
+    else:
+        import torch.multiprocessing as mp
+
+        mp.start_processes(_run_rank, args=(fn, args, plan),
+                           nprocs=plan.nprocs, join=True,
+                           start_method="spawn")
+
+
+def _run_rank(local_rank, fn, args, plan: LaunchPlan) -> None:
+    import torch.distributed as dist
+
+    from yolox_tpu_torch.parallel.mesh import (
+        destroy_distributed,
+        init_distributed,
+    )
+
+    device = ("cpu" if plan.backend == "gloo"
+              else f"cuda:{local_rank}")
+    init_distributed(plan.backend, plan.dist_url, plan.world_size,
+                     plan.first_rank + local_rank, device=device)
+    try:
+        dist.barrier()  # every rank is up (JAX's sync_global_devices)
+        fn(args)
+    finally:
+        destroy_distributed()

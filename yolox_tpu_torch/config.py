@@ -5,12 +5,16 @@ package's `yolox_tpu/config.py`, so configs and overrides carry over
 unchanged. The port builds the model, the optimizer, the LR scheduler,
 the training dataset and loader (host Mosaic/MixUp, or raw tiles for the
 on-device augmentation), the evaluation dataset, loader and evaluator, and
-the single-process trainer; a data-parallel run raises
-`NotImplementedError` until its slice is ported.
+the trainer. With `is_distributed` the loaders split the global batch over
+the ranks of the default `torch.distributed` process group
+(`parallel/mesh.py`): each rank takes `batch_size // world_size` images,
+the training sampler strided by rank, the evaluation batches dealt out
+in turn. `remat` runs the training forward under activation checkpointing
+(`make_train_step(remat=True)`).
 
 Fields that tune the JAX package's TPU layouts (`lane_fold*`,
-`serve_lane_fold`, `serve_stem_s2d*`, `train_stem_s2d`, `remat`) are kept
-as inert fields so that `-D` overrides stay portable; the port ignores them.
+`serve_lane_fold`, `serve_stem_s2d*`, `train_stem_s2d`) are kept as inert
+fields so that `-D` overrides stay portable; the port ignores them.
 """
 
 from __future__ import annotations
@@ -20,12 +24,6 @@ from dataclasses import dataclass
 from typing import Any, Dict, Literal, Optional, Tuple
 
 import numpy as np
-
-
-def _later(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to yolox_tpu_torch yet (a later slice of the "
-        "port brings it; see ROADMAP.md)")
 
 
 @dataclass
@@ -86,8 +84,9 @@ class YoloxConfig:
     eval_interval: int = 10
     save_history_ckpt: bool = True
     ckpt_format: str = "pth"
-    # TPU-layout knobs of the JAX package; inert in the port.
+    # activation checkpointing of the training forward's stages
     remat: bool = False
+    # TPU-layout knobs of the JAX package; inert in the port.
     lane_fold: bool = True
     lane_fold_target: int = 256
     serve_lane_fold: bool = False
@@ -183,7 +182,9 @@ class YoloxConfig:
                         cache_img: Optional[str] = None):
         """The training loader: host Mosaic/MixUp batches, or with
         `device_augment` (and not `no_aug`) raw tiles for the on-device
-        augmentation; the no-aug phase letterboxes on the host."""
+        augmentation; the no-aug phase letterboxes on the host. With
+        `is_distributed` this rank's loader: `batch_size // world_size`
+        images a batch from the rank-strided sampler."""
         from yolox_tpu_torch.data import (
             DataLoader,
             InfiniteSampler,
@@ -192,9 +193,7 @@ class YoloxConfig:
             TrainTransform,
             YoloBatchSampler,
         )
-
-        if is_distributed:
-            _later("data-parallel training (the torch.distributed loader)")
+        rank, world, per_rank = _rank_share(batch_size, is_distributed)
         if self.dataset is None:
             if cache_img is not None:
                 raise ValueError("cache_img must be None if you didn't "
@@ -227,9 +226,10 @@ class YoloxConfig:
                 mixup_prob=self.mixup_prob,
             )
         sampler = InfiniteSampler(len(dataset),
-                                  seed=self.seed if self.seed else 0)
+                                  seed=self.seed if self.seed else 0,
+                                  rank=rank, world_size=world)
         batch_sampler = YoloBatchSampler(sampler=sampler,
-                                         batch_size=batch_size,
+                                         batch_size=per_rank,
                                          mosaic=not no_aug)
         return DataLoader(dataset, batch_sampler=batch_sampler,
                           num_workers=self.data_num_workers)
@@ -294,17 +294,15 @@ class YoloxConfig:
 
     def get_eval_loader(self, batch_size, is_distributed=False, **kwargs):
         """Sequential batches of `get_eval_dataset` (torch's DataLoader
-        with `data_num_workers` workers). Splitting them over processes
-        comes with torch.distributed in the trainer (ROADMAP M7)."""
+        with `data_num_workers` workers). With `is_distributed`, this
+        rank's batches of `batch_size // world_size` images: batch r,
+        r + world, ... of the sequence."""
         from yolox_tpu_torch.data import eval_loader
-        from yolox_tpu_torch.evaluators.coco_evaluator import (
-            require_one_process,
-        )
 
-        if is_distributed:
-            require_one_process("the evaluation loader")
-        return eval_loader(self.get_eval_dataset(**kwargs), batch_size,
-                           num_workers=self.data_num_workers)
+        rank, world, per_rank = _rank_share(batch_size, is_distributed)
+        return eval_loader(self.get_eval_dataset(**kwargs), per_rank,
+                           num_workers=self.data_num_workers, rank=rank,
+                           world_size=world)
 
     def get_evaluator(self, batch_size, is_distributed=False, testdev=False,
                       legacy=False):
@@ -321,7 +319,8 @@ class YoloxConfig:
         )
 
     def get_trainer(self, args):
-        """The single-process `Trainer` (`args.device`, default cuda)."""
+        """The `Trainer` (`args.device`, default cuda), data-parallel over
+        the default process group when one is initialized."""
         from yolox_tpu_torch.core.trainer import Trainer
 
         return Trainer(self, args)
@@ -329,9 +328,24 @@ class YoloxConfig:
     def eval(self, model, evaluator, is_distributed=False, half=False,
              return_outputs=False):
         """`evaluator.evaluate(model, ...)`: (AP50:95, AP50, summary) for
-        a `YoloxModule` on its device."""
+        a `YoloxModule` on its device; with `is_distributed` the ranks'
+        detections are gathered and rank 0 computes the AP (the others
+        return (0, 0, None))."""
         return evaluator.evaluate(
             model, is_distributed, half, return_outputs=return_outputs)
+
+
+def _rank_share(batch_size: int, is_distributed: bool):
+    """(rank, world size, images a rank takes of the global `batch_size`)
+    under the default process group with `is_distributed`, else (0, 1,
+    batch_size)."""
+    from yolox_tpu_torch.parallel.mesh import process_rank_and_count
+
+    rank, world = process_rank_and_count() if is_distributed else (0, 1)
+    if batch_size % world:
+        raise ValueError(f"batch size {batch_size} must divide over the "
+                         f"{world} ranks (each takes batch / world)")
+    return rank, world, batch_size // world
 
 
 def validate_config(config: YoloxConfig):

@@ -1,11 +1,27 @@
 """The training step: forward, SimOTA losses, backward, SGD, EMA and BN
-statistics, on one device.
+statistics, on one device or data-parallel over a process group.
 
 The PyTorch counterpart of the JAX package's `yolox_tpu/core/train_step.py`
 (`init_train_state`, `make_train_step`), with the same semantics in
 PyTorch idiom: the module trains in place in train mode, BatchNorm layers
 update their running statistics in the forward, `torch.optim.SGD`
 (nesterov) holds the momentum, and `ModelEMA` the averaged model.
+
+- `group` (a `torch.distributed` process group; JAX's `mesh=`): each rank
+  steps on its own share of the global batch. BN normalizes with each
+  rank's local batch statistics (nothing is synced in the forward), each
+  rank's loss is normalized by its own `num_fg`, and after the backward one
+  all-reduce (`parallel/mesh.py::MeanReducer`) takes the mean over the
+  ranks of the gradients, of the BN running statistics each rank just
+  updated, and of the logged losses, as JAX pmeans its gradients,
+  `BNCollector` updates and losses. `num_batches_tracked` is counted once
+  on every rank. Every rank then applies the same SGD step and EMA update,
+  so parameters, momentum, EMA and statistics stay identical across
+  ranks. (torch's `DistributedDataParallel` would copy rank 0's running
+  statistics over the others' instead of averaging them.)
+- `remat`: the training forward's stages run under activation
+  checkpointing (`models/blocks.py::RematStages`), recomputed in the
+  backward without moving the running statistics a second time.
 
 - BN: momentum 0.03, unbiased running variance, `num_batches_tracked`
   incremented (`models/blocks.py`).
@@ -34,6 +50,7 @@ import torch
 from yolox_tpu_torch.core.optimizer import build_optimizer, set_hyperparams
 from yolox_tpu_torch.data.device_augment import device_augment_batch
 from yolox_tpu_torch.models.assign import assign_batch, losses_given_assignment
+from yolox_tpu_torch.parallel.mesh import MeanReducer
 from yolox_tpu_torch.utils.ema import ModelEMA
 
 
@@ -71,18 +88,22 @@ def make_train_step(module, num_classes: int, *, momentum: float = 0.9,
                     use_ema: bool = True, compute_dtype=torch.float32,
                     use_l1: bool = False, freeze_prefix: Optional[str] = None,
                     num_candidates: Optional[int] = None,
-                    fused_bwd: bool = False):
+                    fused_bwd: bool = False, remat: bool = False,
+                    group=None):
     """Returns step(state, x, labels, lr, assignment=None) -> (state,
     losses).
 
     x: (B, H, W, 3) float 0-255 pixels, NHWC; labels: (B, M, 5) rows of
     (cls, cx, cy, w, h), zero rows padding; both numpy or tensors, moved to
-    the module's device. losses: total_loss, iou_loss, l1_loss, conf_loss,
-    cls_loss, num_fg, cand_overflow as 0-d tensors on the device.
-    `assignment`: a SimOTA result (`models/assign.py:assign_batch`) to use
-    instead of assigning anew; it holds the discrete decisions fixed where
-    two runs are compared.
+    the module's device. Under a `group` they are this rank's share of the
+    global batch, and the state is the same on every rank. losses:
+    total_loss, iou_loss, l1_loss, conf_loss, cls_loss, num_fg,
+    cand_overflow as 0-d tensors on the device (their mean over the ranks
+    under a group). `assignment`: a SimOTA result
+    (`models/assign.py:assign_batch`) to use instead of assigning anew; it
+    holds the discrete decisions fixed where two runs are compared.
     """
+    reducer = MeanReducer(group) if group is not None else None
 
     def step(state: TrainState, x, labels, lr, assignment=None):
         if state.module is not module:
@@ -94,7 +115,7 @@ def make_train_step(module, num_classes: int, *, momentum: float = 0.9,
         x = torch.as_tensor(x).to(dev, compute_dtype)
         labels = torch.as_tensor(labels).to(dev, torch.float32)
 
-        head_out = module.forward_train(x, fused_bwd=fused_bwd)
+        head_out = module.forward_train(x, fused_bwd=fused_bwd, remat=remat)
         if assignment is None:
             assignment = assign_batch(head_out, labels, num_classes,
                                       num_candidates)
@@ -107,13 +128,23 @@ def make_train_step(module, num_classes: int, *, momentum: float = 0.9,
             for name, p in module.named_parameters():
                 if name.startswith(freeze_prefix):
                     p.grad = None  # SGD skips it: value and momentum stay
+        losses = {k: v.detach() for k, v in losses.items()}
+        if reducer is not None:
+            # frozen parameters have no gradient on any rank, and eval-mode
+            # BN layers (a frozen prefix) no new statistics
+            reducer([p.grad for p in module.parameters()
+                     if p.grad is not None]
+                    + [t for m in module.modules()
+                       if isinstance(m, torch.nn.BatchNorm2d) and m.training
+                       for t in (m.running_mean, m.running_var)]
+                    + list(losses.values()))
         set_hyperparams(opt, lr=lr, momentum=momentum,
                         weight_decay=weight_decay)
         opt.step()
         state.step += 1
         if use_ema:
             state.ema.update(module, ema_decay)
-        return state, {k: v.detach() for k, v in losses.items()}
+        return state, losses
 
     return step
 
@@ -140,7 +171,8 @@ def make_augmented_train_step(module, num_classes: int, *,
                               augment_kwargs: Optional[dict] = None,
                               **step_kwargs):
     """On-device augmentation (+ multiscale resize) followed by the train
-    step.
+    step. Under a `group` (in `step_kwargs`) each rank augments its own
+    share of the batch from its own generator.
 
     Returns step(state, tiles, hw, labels, generator, lr, out_size,
     train_size=None) -> (state, losses), where tiles/hw/labels/generator

@@ -1,6 +1,6 @@
-"""Trainer, single process on one device: the PyTorch counterpart of the
-JAX package's `yolox_tpu/core/trainer.py` (the reference's
-`yolox/core/trainer.py`).
+"""Trainer, on one device or data-parallel across processes: the PyTorch
+counterpart of the JAX package's `yolox_tpu/core/trainer.py` (the
+reference's `yolox/core/trainer.py`).
 
 The same lifecycle (`before/after_{train,epoch,iter}` around the epoch and
 iteration loops) and schedule: mosaic closed and the L1 loss switched on
@@ -15,14 +15,27 @@ with `fused_bwd = config.fused_conv_bwd`. `args.fp16` means bf16 compute
 with float32 master weights, as in the JAX package.
 
 The device is `args.device`, `cuda` when it is not given; with no CUDA
-device and no explicit "cpu" the trainer raises. Data-parallel training
-(`torch.distributed`) comes with a later slice. XLA's multiscale warm-up
+device and no explicit "cpu" the trainer raises. XLA's multiscale warm-up
 compiles have no counterpart: eager PyTorch compiles nothing.
 
-SIGTERM (preemption) writes a resume checkpoint that redoes the
-interrupted epoch and ends `train` cleanly. `YOLOX_PROFILE_DIR` (with
-`YOLOX_PROFILE_START`, `YOLOX_PROFILE_ITERS`) traces those iterations with
-torch.profiler into a Chrome trace there.
+Data parallelism: when a default `torch.distributed` process group is
+initialized (`parallel/mesh.py::init_distributed`; the CLI's `-d`,
+`--num_machines`, `--dist-url`), `-b` is the global batch and each rank
+trains on `batch // world_size` images of its own (the rank-strided
+sampler), with the gradients, BN statistics and logged losses averaged
+over the ranks every step (`make_train_step(group=...)`); each rank
+augments on the device from its own generator. Evaluation runs on every
+rank and gathers the detections to rank 0. Only rank 0 writes the
+output directory: log file, tracker, checkpoints and `best_ckpt`. The
+ranks wait for each other once before the first step.
+
+SIGTERM (preemption) on any rank writes a resume checkpoint that redoes
+the interrupted epoch and ends `train` cleanly on every rank at the same
+iteration: at each iteration boundary the ranks all-reduce their notice
+flags with MAX (the JAX package's `reached_preemption_sync_point`).
+`YOLOX_PROFILE_DIR` (with `YOLOX_PROFILE_START`, `YOLOX_PROFILE_ITERS`)
+traces those iterations with torch.profiler into a Chrome trace there,
+one file a rank.
 """
 
 from __future__ import annotations
@@ -42,6 +55,7 @@ from yolox_tpu_torch.models.weights import (
     state_dict_to_jax,
 )
 from yolox_tpu_torch.models.yolox import resolve_device
+from yolox_tpu_torch.parallel.mesh import any_rank, process_rank_and_count
 from yolox_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     load_ckpt,
@@ -73,7 +87,12 @@ class Trainer:
 
         self.max_epoch = config.max_epoch
         self.use_bf16 = bool(getattr(args, "fp16", False))
-        self.rank = 0
+        self.rank, self.world_size = process_rank_and_count()
+        self.is_distributed = self.world_size > 1
+        if args.batch_size % self.world_size:
+            raise ValueError(
+                f"batch size {args.batch_size} must divide over the "
+                f"{self.world_size} ranks (each takes batch / world)")
         self.use_model_ema = config.ema
         self.save_history_ckpt = config.save_history_ckpt
 
@@ -83,7 +102,8 @@ class Trainer:
         self.meter = MeterBuffer(window_size=config.print_interval)
         self.file_name = os.path.join(
             config.output_dir, getattr(args, "name", None) or config.name)
-        os.makedirs(self.file_name, exist_ok=True)
+        if self.rank == 0:
+            os.makedirs(self.file_name, exist_ok=True)
         # raw prints land in train_log.txt as log records (the reference's
         # `logger.py:32-78`); after_train restores the streams
         setup_logger(self.file_name, rank=self.rank,
@@ -134,7 +154,11 @@ class Trainer:
             self._prev_sigterm = None
 
     def _maybe_handle_preemption(self):
-        if not self._sigterm.is_set():
+        preempted = self._sigterm.is_set()
+        if self.is_distributed:
+            # every rank takes the same decision at the same boundary
+            preempted = any_rank(preempted)
+        if not preempted:
             return
         logger.info(
             f"preemption notice at epoch {self.epoch + 1} iter "
@@ -192,11 +216,14 @@ class Trainer:
         data_end_time = time.time()
 
         lr = self.lr_scheduler.update_lr(self.progress_in_iter + 1)
+        if self._first_step_pending:
+            self._first_step_pending = False
+            logger.info("data-parallel: ranks meet before the first step")
+            torch.distributed.barrier()
         if self._device_augment:
             hw = np.stack([np.asarray(i) for i in infos]).astype(np.float32)
-            self._aug_gen.manual_seed(
-                ((self.exp.seed or 0) + 777) * 1_000_003
-                + self.progress_in_iter)
+            self._aug_gen.manual_seed(augment_seed(
+                self.exp.seed, self.rank, self.progress_in_iter))
             self.train_state, outputs = self._step_aug(
                 self.train_state, inps, hw, targets.float(), self._aug_gen,
                 lr, tuple(self.input_size), tuple(self._current_size))
@@ -248,8 +275,9 @@ class Trainer:
 
     def _make_loader(self, no_aug):
         loader = self.exp.get_data_loader(
-            batch_size=self.args.batch_size, is_distributed=False,
-            no_aug=no_aug, cache_img=getattr(self.args, "cache", None))
+            batch_size=self.args.batch_size,
+            is_distributed=self.is_distributed, no_aug=no_aug,
+            cache_img=getattr(self.args, "cache", None))
         # batches pinned in the loader's own thread, for the prefetcher's
         # non_blocking copy to the card
         loader.pin_memory = self.device.type == "cuda"
@@ -265,6 +293,10 @@ class Trainer:
 
         logger.info(f"args: {vars(self.args)}")
         logger.info(f"config: {self.exp.name}, device: {self.device}")
+        if self.is_distributed:
+            logger.info(f"data-parallel over {self.world_size} ranks, "
+                        f"{self.args.batch_size // self.world_size} images "
+                        "a rank")
 
         self.module = self.exp.get_model(
             rng_seed=self.exp.seed if self.exp.seed else 0,
@@ -292,6 +324,9 @@ class Trainer:
             freeze_prefix=self.exp.freeze_prefix,
             num_candidates=self.exp.resolved_simota_candidates(),
             fused_bwd=bool(self.exp.fused_conv_bwd),
+            remat=bool(self.exp.remat),
+            group=(torch.distributed.group.WORLD if self.is_distributed
+                   else None),
         )
         num_classes = self.exp.num_classes
         self._step = make_train_step(self.module, num_classes, use_l1=False,
@@ -334,10 +369,13 @@ class Trainer:
         self._current_size = self.input_size
 
         self.evaluator = self.exp.get_evaluator(
-            batch_size=self.args.batch_size, is_distributed=False)
+            batch_size=self.args.batch_size,
+            is_distributed=self.is_distributed)
 
         self.tblogger = None
-        logger_kind = getattr(self.args, "logger", "tensorboard")
+        # rank 0 alone keeps a tracker
+        logger_kind = (getattr(self.args, "logger", "tensorboard")
+                       if self.rank == 0 else None)
         if logger_kind == "tensorboard":
             try:
                 from tensorboardX import SummaryWriter
@@ -359,6 +397,7 @@ class Trainer:
             self.wandb_logger.setup(args=self.args, exp=self.exp)
 
         self.epoch = self.start_epoch  # valid even before the epoch loop
+        self._first_step_pending = self.is_distributed
         self._install_preemption_handler()
         logger.info("Training start...")
 
@@ -515,7 +554,8 @@ class Trainer:
     def evaluate_and_save_model(self):
         eval_module = self._eval_module()
         with adjust_status(eval_module, training=False):
-            results = self.exp.eval(eval_module, self.evaluator, False,
+            results = self.exp.eval(eval_module, self.evaluator,
+                                    self.is_distributed,
                                     return_outputs=True)
         (ap50_95, ap50, summary), predictions = results
 
@@ -551,7 +591,9 @@ class Trainer:
                   start_epoch=None):
         """`start_epoch` is the epoch a resume restarts from; the default
         (current epoch + 1) means this epoch completed. The preemption
-        path passes the current epoch to redo it."""
+        path passes the current epoch to redo it. Rank 0 alone writes."""
+        if self.rank != 0:
+            return
         if start_epoch is None:
             start_epoch = self.epoch + 1
         logger.info(f"Save weights to {self.file_name}")
@@ -579,6 +621,14 @@ class Trainer:
                 self.file_name, ckpt_name, update_best_ckpt,
                 metadata={"epoch": self.epoch + 1, "best_ap": self.best_ap,
                           "curr_ap": ap})
+
+
+def augment_seed(seed, rank: int, progress: int) -> int:
+    """The seed of a rank's device-augmentation generator at an iteration:
+    rank 0's is that of a single-process run, and each other rank's is
+    offset by rank * 2**40, so the ranks draw independent augmentations
+    of their own images."""
+    return ((seed or 0) + 777) * 1_000_003 + progress + (rank << 40)
 
 
 def _tensor_tree(tree):

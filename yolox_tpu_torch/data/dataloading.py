@@ -59,6 +59,20 @@ def collate_tensors(items):
     return torch.from_numpy(imgs), torch.from_numpy(targets), infos, ids
 
 
+def worker_context(num_workers: int):
+    """The multiprocessing context of the loaders' workers: fork, where the
+    platform has it, also in a process that was itself spawned (a
+    data-parallel rank of `torch.multiprocessing.spawn` or of the CLI's
+    `-d`), where Python's default is to spawn each worker anew, and every
+    loader start then re-imports the program and torch (~17 s a start on
+    an H100's host). None without workers."""
+    import multiprocessing as mp
+
+    if num_workers > 0 and "fork" in mp.get_all_start_methods():
+        return mp.get_context("fork")
+    return None
+
+
 def _worker_init(_worker_id):
     # cv2 must not spawn threads inside data workers (`setup_env.py:59-75`)
     try:
@@ -87,7 +101,8 @@ def eval_loader(dataset, batch_size: int, num_workers: int = 0,
     return EvalLoader(dataset, batch_sampler=sampler,
                       num_workers=num_workers, collate_fn=collate_tensors,
                       worker_init_fn=_worker_init if num_workers > 0
-                      else None)
+                      else None,
+                      multiprocessing_context=worker_context(num_workers))
 
 
 class DataLoader:
@@ -117,7 +132,8 @@ class DataLoader:
             self.dataset, batch_sampler=self.batch_sampler,
             num_workers=self.num_workers, collate_fn=collate_tensors,
             pin_memory=self.pin_memory,
-            worker_init_fn=_worker_init if self.num_workers > 0 else None)
+            worker_init_fn=_worker_init if self.num_workers > 0 else None,
+            multiprocessing_context=worker_context(self.num_workers))
         # the workers stop when this generator is closed or collected
         yield from loader
 

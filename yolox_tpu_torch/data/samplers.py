@@ -4,8 +4,8 @@
 `InfiniteSampler` is a seeded infinite shuffled index stream, strided by
 (rank, world_size). `YoloBatchSampler` yields batches of `(mosaic_flag,
 idx, sample_seed)` tuples: the per-sample seed makes a sample's
-augmentation a function of (seed, sample ordinal), whatever the worker
-that builds it. `SequentialBatchSampler` gives the evaluation's finite
+augmentation a function of (seed, the sample's place in the global
+stream), whatever the worker or the rank that builds it. `SequentialBatchSampler` gives the evaluation's finite
 batches.
 """
 
@@ -28,12 +28,12 @@ class InfiniteSampler:
         self._size = size
         self._shuffle = shuffle
         self._seed = int(seed or 0)
-        self._rank = rank
-        self._world_size = world_size
+        self.rank = rank
+        self.world_size = world_size
 
     def __iter__(self) -> Iterator[int]:
         yield from itertools.islice(
-            self._infinite_indices(), self._rank, None, self._world_size)
+            self._infinite_indices(), self.rank, None, self.world_size)
 
     def _infinite_indices(self):
         rng = np.random.default_rng(self._seed)
@@ -44,11 +44,17 @@ class InfiniteSampler:
                 yield from range(self._size)
 
     def __len__(self):
-        return self._size // self._world_size
+        return self._size // self.world_size
 
 
 class YoloBatchSampler:
-    """Batches of (mosaic, idx, seed) tuples (`samplers.py:12-25`)."""
+    """Batches of (mosaic, idx, seed) tuples (`samplers.py:12-25`).
+
+    A sample's seed is its place in the global stream: the k-th sample of
+    rank r under a rank-strided sampler is place k * world_size + r. So
+    the ranks draw different augmentations, and together the seeds one
+    process draws for the same images (the JAX package counts the place
+    within its process, which is the same for one process)."""
 
     def __init__(self, sampler, batch_size: int, drop_last: bool = False,
                  mosaic: bool = True, seed: int = 0):
@@ -60,11 +66,12 @@ class YoloBatchSampler:
 
     def __iter__(self) -> Iterator[List[Tuple[bool, int, int]]]:
         batch = []
-        ordinal = 0
+        place = getattr(self.sampler, "rank", 0)
+        stride = getattr(self.sampler, "world_size", 1)
         for idx in self.sampler:
-            sample_seed = (self.seed * 1_000_003 + ordinal) & 0x7FFFFFFF
+            sample_seed = (self.seed * 1_000_003 + place) & 0x7FFFFFFF
             batch.append((self.mosaic, int(idx), sample_seed))
-            ordinal += 1
+            place += stride
             if len(batch) == self.batch_size:
                 yield batch
                 batch = []

@@ -8,9 +8,11 @@ results converted to COCO json format on the host (rescale by
 1/letterbox-ratio, xyxy -> xywh, class index -> COCO category id) and
 evaluated with the self-contained COCOeval (`evaluators/cocoeval.py`).
 CUDA launches are asynchronous, so batch k+1 is dispatched before batch
-k's detections are fetched and converted. Gathering detections from
-several processes comes with `torch.distributed` in the data-parallel
-trainer (ROADMAP M7); until then more than one process raises.
+k's detections are fetched and converted. With `distributed` under a
+`torch.distributed` process group each rank infers on its own batches
+(`get_eval_loader(is_distributed=True)`), the detections are gathered
+ordered by rank (`parallel/mesh.py::all_gather_objects`) and rank 0
+computes the AP; the other ranks return (0, 0, None).
 """
 
 from __future__ import annotations
@@ -26,25 +28,12 @@ import torch
 
 from yolox_tpu_torch.data.datasets.coco_classes import COCO_CLASSES
 from yolox_tpu_torch.ops.preproc import letterbox_ratio
+from yolox_tpu_torch.parallel.mesh import (
+    all_gather_objects,
+    is_main_process,
+    process_count,
+)
 from yolox_tpu_torch.utils.logger import logger
-
-
-def process_rank_and_count():
-    """(rank, world size) of `torch.distributed` when it is initialized,
-    else (0, 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
-def require_one_process(what: str) -> None:
-    if process_rank_and_count()[1] > 1:
-        raise NotImplementedError(
-            f"{what} across processes gathers detections with "
-            "torch.distributed, which comes with the data-parallel "
-            "trainer (ROADMAP M7); evaluate in one process")
 
 
 def model_device(model) -> torch.device:
@@ -153,10 +142,9 @@ class CocoEvaluator:
         (B, A, 5 + C) output (a `YoloxModule`). half=True runs the forward
         in bfloat16 (input cast to bf16, decoded output cast back to f32
         so postprocess/NMS stay full-precision) — the reference's fp16
-        eval flag; pass a bf16 module for a bf16 forward.
+        eval flag; pass a bf16 module for a bf16 forward. `distributed`:
+        gather every rank's detections, AP on rank 0.
         """
-        if distributed:
-            require_one_process("COCO evaluation")
         data_list = []       # dict path (return_outputs) | columnar dicts
         output_data = defaultdict(dict)
         inference_time = 0.0
@@ -209,6 +197,10 @@ class CocoEvaluator:
 
         statistics = np.array(
             [inference_time, 0.0, float(n_samples)], np.float64)
+        if distributed and process_count() > 1:
+            gathered = all_gather_objects((data_list, dict(output_data)))
+            data_list = list(itertools.chain(*(d for d, _ in gathered)))
+            output_data = {k: v for _, o in gathered for k, v in o.items()}
         if not return_outputs:
             # concatenate the per-batch columnar chunks into one flat
             # columnar dict
@@ -302,7 +294,7 @@ class CocoEvaluator:
     def evaluate_prediction(self, data_dict, statistics):
         """`data_dict`: per-ann dict list OR a columnar dict of arrays
         (both accepted by `coco_json.COCO.loadRes`)."""
-        if process_rank_and_count()[0] != 0:
+        if not is_main_process():
             return 0, 0, None
         n_dets = (len(data_dict["score"]) if isinstance(data_dict, dict)
                   else len(data_dict))

@@ -3,7 +3,9 @@
 `voc_evaluator.py`): the inference path of `CocoEvaluator` (the module's
 device, `postprocess_device` with K2, batch k+1 dispatched before batch k
 is fetched), per-class box lists handed to
-`VocDetection.evaluate_detections` (voc_eval over IoU .5:.95).
+`VocDetection.evaluate_detections` (voc_eval over IoU .5:.95). With
+`distributed` the ranks' detections are gathered and rank 0 computes the
+mAP, as in `CocoEvaluator`.
 """
 
 from __future__ import annotations
@@ -12,12 +14,13 @@ import time
 
 import numpy as np
 
-from yolox_tpu_torch.evaluators.coco_evaluator import (
-    device_inference,
-    process_rank_and_count,
-    require_one_process,
-)
+from yolox_tpu_torch.evaluators.coco_evaluator import device_inference
 from yolox_tpu_torch.ops.preproc import letterbox_ratio
+from yolox_tpu_torch.parallel.mesh import (
+    all_gather_objects,
+    is_main_process,
+    process_count,
+)
 from yolox_tpu_torch.utils.logger import logger
 
 
@@ -34,8 +37,6 @@ class VocEvaluator:
 
     def evaluate(self, model, distributed=False, half=False,
                  return_outputs=False, decoder=None, test_size=None):
-        if distributed:
-            require_one_process("VOC evaluation")
         data_dict = {}
         inference_time = 0.0
         n_samples = max(len(self.dataloader) - 1, 1)
@@ -72,7 +73,13 @@ class VocEvaluator:
         if pending is not None:
             drain(pending)
 
-        if process_rank_and_count()[0] != 0:
+        if distributed and process_count() > 1:
+            merged = {}
+            for d in all_gather_objects(data_dict):
+                merged.update(d)
+            data_dict = merged
+
+        if not is_main_process():
             return 0, 0, None
 
         batch_size = getattr(self.dataloader.batch_sampler, "batch_size", 1)

@@ -14,6 +14,12 @@ unbiased estimate, `num_batches_tracked` incremented; a BatchNorm put in
 eval mode inside a training module (a frozen prefix) normalizes with its
 running statistics and leaves them as they are. Train mode keeps f32
 master weights: each conv casts its weight to the activation's dtype.
+The running statistics move in the forward, once a step: a stage run
+under activation checkpointing (`RematStages.stage`, the port's `remat`)
+skips the update when the backward recomputes it, and a data-parallel
+step averages the updated statistics over the ranks afterwards
+(`core/train_step.py`), as the JAX package pmeans its `BNCollector`
+updates.
 
 Every block has an `init_params(rng)` that draws its random weights from a
 numpy Generator in the same order and with the same formulas as the JAX
@@ -30,6 +36,7 @@ between blocks ("hbm"), as the JAX package's `Ctx.calib_sink`,
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from yolox_tpu_torch.ops import conv_bwd
 from yolox_tpu_torch.ops import quant
@@ -219,6 +227,9 @@ class BaseConv(Int8Hooks, nn.Module):
     to a residual add that requantizes (set by Bottleneck / ResLayer)."""
 
     defer_requant_hbm = False
+    # set while a checkpointed stage is recomputed in the backward: the
+    # running statistics already moved in the forward
+    recomputing = False
 
     def __init__(self, cin, cout, ksize, stride, groups=1, act="silu"):
         super().__init__()
@@ -300,8 +311,9 @@ class BaseConv(Int8Hooks, nn.Module):
                          1, c.groups)
             y, mean, var = batch_norm_train(z, bn.weight, bn.bias)
             y = self.act(y)
-        update_running_stats(bn, mean, var, y.shape[0] * y.shape[2]
-                             * y.shape[3])
+        if not self.recomputing:
+            update_running_stats(bn, mean, var, y.shape[0] * y.shape[2]
+                                 * y.shape[3])
         return y
 
     def bn_fold(self):
@@ -311,6 +323,41 @@ class BaseConv(Int8Hooks, nn.Module):
         scale = bn.weight.float() * inv
         bias = bn.bias.float() - bn.running_mean.float() * scale
         return scale, bias
+
+
+@contextlib.contextmanager
+def recomputing(module: nn.Module):
+    """The BaseConvs under `module` skip their running-statistic update
+    while this is open."""
+    convs = [m for m in module.modules() if isinstance(m, BaseConv)]
+    for m in convs:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in convs:
+            m.recomputing = False
+
+
+class RematStages:
+    """A network whose stages may run under activation checkpointing (the
+    JAX package's `remat`, `jax.checkpoint` around the training forward).
+    With `remat` set (`YoloxModule.forward_train` sets it) and gradients
+    on, `stage(block, x)` keeps only the stage's input and output and the
+    backward recomputes the rest, its BN running statistics left as the
+    forward moved them; otherwise it is `block(x)`. The arithmetic is the
+    same either way: only which activations live until the backward
+    differs. Checkpointing stage by stage, not the whole forward at once,
+    is what lowers the peak: the backward recomputes one stage at a
+    time."""
+
+    remat = False
+
+    def stage(self, block: nn.Module, x):
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return block(x)
+        return checkpoint(block, x, use_reentrant=False, context_fn=lambda: (
+            contextlib.nullcontext(), recomputing(block)))
 
 
 class DWConv(nn.Module):

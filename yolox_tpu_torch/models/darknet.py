@@ -14,14 +14,16 @@ from yolox_tpu_torch.models.blocks import (
     CspLayer,
     DWConv,
     Focus,
+    RematStages,
     ResLayer,
     SPPBottleneck,
     init_children,
 )
 
 
-class CspDarknet(nn.Module):
-    """CSPDarknet backbone (`darknet.py:95-177`): Focus stem, dark2..dark5.
+class CspDarknet(RematStages, nn.Module):
+    """CSPDarknet backbone (`darknet.py:95-177`): Focus stem, dark2..dark5,
+    each a stage under `remat`.
 
     Widths 64*w*{1,2,4,8,16}; depths round(3*d)*{1,3,3,1}; SPP in dark5.
     Takes the (B, H, W, 3) image and returns a dict of the requested
@@ -70,17 +72,18 @@ class CspDarknet(nn.Module):
 
     def forward(self, x):
         outputs = {}
-        x = self.stem(x)
+        x = self.stage(self.stem, x)
         outputs["stem"] = x
         for name in ("dark2", "dark3", "dark4", "dark5"):
-            x = getattr(self, name)(x)
+            x = self.stage(getattr(self, name), x)
             outputs[name] = x
         return {k: v for k, v in outputs.items() if k in self.out_features}
 
 
-class Darknet(nn.Module):
+class Darknet(RematStages, nn.Module):
     """Legacy Darknet-21/53 backbone (`darknet.py:8-92`), lrelu
-    activations; dark5 carries the SPP block."""
+    activations; dark5 carries the SPP block. stem and dark2..dark5 are
+    the stages under `remat`."""
 
     depth2blocks = {21: [1, 2, 2, 1], 53: [2, 8, 8, 4]}
 
@@ -133,9 +136,9 @@ class Darknet(nn.Module):
     def forward(self, x):
         """x: the (B, H, W, 3) image. Returns the requested NCHW maps."""
         outputs = {}
-        x = self.stem(x.permute(0, 3, 1, 2))
+        x = self.stage(self.stem, x.permute(0, 3, 1, 2))
         outputs["stem"] = x
         for name in ("dark2", "dark3", "dark4", "dark5"):
-            x = getattr(self, name)(x)
+            x = self.stage(getattr(self, name), x)
             outputs[name] = x
         return {k: v for k, v in outputs.items() if k in self.out_features}

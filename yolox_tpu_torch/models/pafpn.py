@@ -2,7 +2,9 @@
 `yolox_tpu/models/pafpn.py`.
 
 Top-down FPN + bottom-up PAN over (dark3, dark4, dark5); nearest 2x
-upsampling; outputs three pyramid levels at strides (8, 16, 32).
+upsampling; outputs three pyramid levels at strides (8, 16, 32). Under
+`remat` each CSPLayer is a stage (`blocks.RematStages`), as the backbone's
+dark stages are.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from yolox_tpu_torch.models.blocks import (
     CspLayer,
     DWConv,
     Int8Hooks,
+    RematStages,
     cat,
     init_children,
     upsample,
@@ -23,7 +26,7 @@ from yolox_tpu_torch.models.blocks import (
 from yolox_tpu_torch.models.darknet import CspDarknet
 
 
-class YoloPafpn(Int8Hooks, nn.Module):
+class YoloPafpn(RematStages, Int8Hooks, nn.Module):
     def __init__(
         self,
         depth: float = 1.0,
@@ -68,15 +71,15 @@ class YoloPafpn(Int8Hooks, nn.Module):
         # in the HBM mode upsample / cat act on QTensor codes and scales
         fpn_out0 = self.lateral_conv0(x0)
         f_out0 = cat(self, [upsample(self, fpn_out0), x1])
-        f_out0 = self.C3_p4(f_out0)
+        f_out0 = self.stage(self.C3_p4, f_out0)
 
         fpn_out1 = self.reduce_conv1(f_out0)
         f_out1 = cat(self, [upsample(self, fpn_out1), x2])
-        pan_out2 = self.C3_p3(f_out1)
+        pan_out2 = self.stage(self.C3_p3, f_out1)
 
         p_out1 = cat(self, [self.bu_conv2(pan_out2), fpn_out1])
-        pan_out1 = self.C3_n3(p_out1)
+        pan_out1 = self.stage(self.C3_n3, p_out1)
 
         p_out0 = cat(self, [self.bu_conv1(pan_out1), fpn_out0])
-        pan_out0 = self.C3_n4(p_out0)
+        pan_out0 = self.stage(self.C3_n4, p_out0)
         return (pan_out2, pan_out1, pan_out0)

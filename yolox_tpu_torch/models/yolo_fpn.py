@@ -9,6 +9,7 @@ import torch.nn as nn
 from yolox_tpu_torch.models.blocks import (
     BaseConv,
     Int8Hooks,
+    RematStages,
     cat,
     init_children,
     upsample,
@@ -16,8 +17,9 @@ from yolox_tpu_torch.models.blocks import (
 from yolox_tpu_torch.models.darknet import Darknet
 
 
-class YoloFpn(Int8Hooks, nn.Module):
-    """YOLOv3 FPN over a Darknet backbone (depth 53 by default)."""
+class YoloFpn(RematStages, Int8Hooks, nn.Module):
+    """YOLOv3 FPN over a Darknet backbone (depth 53 by default); its two
+    embedding blocks are the stages under `remat`."""
 
     def __init__(self, depth=53, in_features=("dark3", "dark4", "dark5")):
         super().__init__()
@@ -52,7 +54,7 @@ class YoloFpn(Int8Hooks, nn.Module):
         x2, x1, x0 = [out_features[f] for f in self.in_features]
         # in the HBM mode upsample / cat act on QTensor codes and scales
         x1_in = cat(self, [upsample(self, self.out1_cbl(x0)), x1])
-        out_dark4 = self.out1(x1_in)
+        out_dark4 = self.stage(self.out1, x1_in)
         x2_in = cat(self, [upsample(self, self.out2_cbl(out_dark4)), x2])
-        out_dark3 = self.out2(x2_in)
+        out_dark3 = self.stage(self.out2, x2_in)
         return (out_dark3, out_dark4, x0)

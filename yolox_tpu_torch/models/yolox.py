@@ -37,7 +37,13 @@ import torch
 import torch.nn as nn
 
 from yolox_tpu_torch.config import YoloxConfig
-from yolox_tpu_torch.models.blocks import BaseConv, Focus, Int8Hooks, Int8State
+from yolox_tpu_torch.models.blocks import (
+    BaseConv,
+    Focus,
+    Int8Hooks,
+    Int8State,
+    RematStages,
+)
 from yolox_tpu_torch.models.head import YoloxHead
 from yolox_tpu_torch.models.pafpn import YoloPafpn
 from yolox_tpu_torch.models.processor import Detections, YoloxProcessor
@@ -299,18 +305,23 @@ class YoloxModule(nn.Module):
             fpn_outs = self.backbone(self._image_batch(x, mode))
             return self.head(fpn_outs).float()
 
-    def forward_train(self, x, fused_bwd: bool = False):
+    def forward_train(self, x, fused_bwd: bool = False, remat: bool = False):
         """Train-mode forward (the JAX package's `apply_train`): x is the
         (B, H, W, 3) float image batch on the module's device, in the
         compute dtype; returns `YoloxHead.forward_train`'s dict. BatchNorm
         layers in train mode update their running statistics. `fused_bwd`
         routes every BaseConv through the fused-backward Function
-        (`ops/conv_bwd.py`; its 1x1 SiLU convs take kernels K3 and K4)."""
+        (`ops/conv_bwd.py`; its 1x1 SiLU convs take kernels K3 and K4).
+        `remat` runs the backbone's stages and the neck's CSP layers under
+        activation checkpointing (`blocks.RematStages`): the same numbers,
+        fewer activations kept for the backward."""
         if not self.training:
             raise RuntimeError("forward_train needs train mode: call .train()")
         for m in self.modules():
             if isinstance(m, BaseConv):
                 m.fused_bwd = fused_bwd
+            elif isinstance(m, RematStages):
+                m.remat = remat
         return self.head.forward_train(self.backbone(x))
 
     @torch.inference_mode()
