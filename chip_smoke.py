@@ -178,12 +178,37 @@ Phases, in order; any failure exits non-zero and prints no result:
    are read around every main-path run of both ranks; the phase's wall
    time is printed.
 
+14. (run last) the serving meshes (`run_mesh`): `MESH_WORLD` gloo ranks
+   spawned on the one card (`mesh_rank`), each case served through
+   `make_serving_fn(mesh=...)` with the launch counters read around one
+   call on every rank: yolox-s at full width and depth, 640 px, seeded
+   weights (`rng_seed` 4321, scores spread), over (1, 2) at b1 and (2, 1)
+   at b2 in float32 (TF32 off) and bf16, over (2, 2) at b2 in bf16; int8
+   HBM and the ladder (bf16 module, one table calibrated here and handed
+   to the ranks) over (1, 2) at b1; yolov3 over (1, 2) at b1 in float32;
+   nano int8 HBM at 416 px over (1, 2) (uneven slabs, Q2); nano at 96 px
+   over (1, 4) (3 slabs and an empty rank). Each case's threshold keeps
+   at least `INT8_MIN_DETS` detections an image. Every rank's `(dets,
+   valid)` must equal, bit for bit, this process's `serve` of the same
+   module on the card at the rank's own batch (its `data` share, so the
+   same shapes reach cuDNN apart from the slab's height): a halo placed
+   wrongly or a kernel fault at a slab's shape shows there. Data-split
+   cases are also held to one `serve` of the whole batch (`mesh_check`:
+   float32 at `assert_dets_match`'s tolerances, bf16 row by row at the
+   bf16 ones, since cuDNN may take another algorithm for another batch);
+   launches as one process's on a rank with rows and K2's alone on an
+   empty one; the
+   (1, 1) mesh through an NCCL group of world size 1 bit-equal to
+   `serve` (`mesh_nccl`); then per rank the meshed b1 call's median ms
+   beside one process's, the exchanges a call, their bytes and host ms
+   (what a rank pays on a shared card: no scaling figure).
+
 Then JSON lines with the serve, evaluation, training, augmentation,
-int8, trainer, CLI and parallel results and the kernels (each with its
-launches on every main path: `launches`, `launches_eval`,
-`launches_trainer`, `launches_cli`, `launches_parallel`), the
-`nvidia-smi` name and power limit, and as the last line `{"ok": true,
-"device": {...}}`.
+int8, trainer, CLI, parallel and mesh results and the kernels (each with
+its launches on every main path: `launches`, `launches_eval`,
+`launches_trainer`, `launches_cli`, `launches_parallel`,
+`launches_mesh`), the `nvidia-smi` name and power limit, and as the last
+line `{"ok": true, "device": {...}}`.
 
 TF32 is turned off here (cuDNN and matmul) before any comparison with
 float32 references; the package itself never changes global flags.
@@ -5203,6 +5228,387 @@ def run_parallel(cfg, rng, n_convs, lines):
     return totals
 
 
+# ------------------------------------------- serving meshes (phase 14)
+
+MESH_WORLD = 4        # gloo ranks, all on the one card
+MESH_MAX_DET = 256
+MESH_TIME_REPS = 20   # timed b1 calls a rank, after MESH_WARMUP
+MESH_WARMUP = 3
+MESH_TIMEOUT_S = 300  # a collective waiting longer fails the phase
+MESH_SEEDS = {"yolox_s": 4321, "yolov3": 777, "yolox_nano": 1234}
+# (name, model, dtype, (n_data, n_space), batch, px, int8 mode)
+MESH_CASES = (
+    ("s_f32_1x2_b1", "yolox_s", "float32", (1, 2), 1, 640, None),
+    ("s_f32_2x1_b2", "yolox_s", "float32", (2, 1), 2, 640, None),
+    ("s_bf16_1x2_b1", "yolox_s", "bfloat16", (1, 2), 1, 640, None),
+    ("s_bf16_2x1_b2", "yolox_s", "bfloat16", (2, 1), 2, 640, None),
+    ("s_bf16_2x2_b2", "yolox_s", "bfloat16", (2, 2), 2, 640, None),
+    ("s_hbm_1x2_b1", "yolox_s", "bfloat16", (1, 2), 1, 640, "hbm"),
+    ("s_ladder_1x2_b1", "yolox_s", "bfloat16", (1, 2), 1, 640, "ladder"),
+    ("v3_f32_1x2_b1", "yolov3", "float32", (1, 2), 1, 640, None),
+    ("nano_hbm_1x2_416", "yolox_nano", "float32", (1, 2), 1, 416, "hbm"),
+    ("nano_f32_1x4_96", "yolox_nano", "float32", (1, 4), 1, 96, None),
+)
+MESH_TIMED = ("s_f32_1x2_b1", "s_bf16_1x2_b1")
+
+
+def mesh_module(model, dtype, card, preds=None):
+    """Seeded `model` (`MESH_SEEDS`) on `card` in `dtype`, its prediction
+    convs set to `preds` (the parent's spread scores) when given."""
+    import torch
+
+    from yolox_tpu_torch import YoloxConfig, YoloxModule
+
+    module = YoloxModule.from_config(YoloxConfig.get_named_config(model),
+                                     rng_seed=MESH_SEEDS[model], device=card)
+    if preds is not None:
+        module.load_params(preds, strict=False)
+    return module.cast_params(getattr(torch, dtype))
+
+
+def mesh_threshold(scores):
+    """A threshold in a gap of the anchors' `scores` (B, A) that keeps
+    several times `INT8_MIN_DETS` candidates an image: between the
+    4 * INT8_MIN_DETS-th and 12 * INT8_MIN_DETS-th highest scores of the
+    batch, per image. Returns (threshold, relative gap)."""
+    s = np.sort(scores.ravel())[::-1]
+    b = scores.shape[0]
+    hi, lo = (s[min(len(s) - 1, n * INT8_MIN_DETS * b)] for n in (4, 12))
+    return gap_threshold(scores, lo, hi)
+
+
+def mesh_kwargs(thr, mode, table):
+    kw = {"conf_thre": thr, "max_det": MESH_MAX_DET}
+    if mode is not None:
+        kw["int8_qtab" if mode == "ladder" else "int8_hbm_qtab"] = table
+    return kw
+
+
+def _has_rows(size, shape, coords):
+    from yolox_tpu_torch.parallel.halo import row_slabs
+
+    a, b = row_slabs(size, shape[1])[coords[1]]
+    return b > a
+
+
+def _wall_call_ms(fn):
+    _card_sync()
+    t0 = time.perf_counter()
+    fn()
+    _card_sync()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def mesh_times(fn, module, x, kw, reps):
+    """Median wall ms of the meshed call and of one-process `serve` on this
+    rank (both ranks of the mesh run theirs at once on the one card), and
+    the meshed call's exchanges: counts and bytes, and the median of
+    their host ms."""
+    for _ in range(MESH_WARMUP):
+        fn(x)
+        module.serve(x, **kw)
+    meshed, exch = [], []
+    for _ in range(reps):
+        meshed.append(_wall_call_ms(lambda: fn(x)))
+        exch.append(1e3 * fn.stats["space"]["exchange_s"])
+    one = [_wall_call_ms(lambda: module.serve(x, **kw)) for _ in range(reps)]
+    st = fn.stats["space"]
+    return {"meshed_ms": float(np.median(meshed)),
+            "one_process_ms": float(np.median(one)),
+            "exchanges": st["exchanges"], "exchange_bytes": st["exchange_bytes"],
+            "exchange_ms": float(np.median(exch)),
+            "gather_bytes": st["gather_bytes"]}
+
+
+def mesh_rank(rank, root, cards, backend):
+    """One of len(`cards`) ranks of a `backend` group, on `cards[rank]`
+    (phase 14: MESH_WORLD gloo ranks, all on the one card): every case of
+    `mesh_inputs.pt` through `make_serving_fn(mesh=...)` (each mesh made
+    on every rank, served on its members): one warm-up call, one call with
+    the launch counters read around it, and for the timed cases
+    `mesh_times`; what it saw goes to `root/mesh_rank<r>.pt`."""
+    import torch
+
+    from yolox_tpu_torch.parallel import mesh as pm
+
+    global CARD
+    card = CARD = cards[rank]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inp = torch.load(Path(root) / "mesh_inputs.pt", weights_only=False)
+    device = torch.device(card)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", 0)
+    pm.init_distributed(backend, f"file://{root}/mesh_rendezvous",
+                        len(cards), rank, device=device,
+                        timeout=MESH_TIMEOUT_S)
+    counters = _launch_counters()
+    out = {"rank": rank, "cases": {}, "times": {}}
+    modules = {}
+    try:
+        for name, model, dtype, shape, _, _, _ in inp["cases"]:
+            mesh = pm.serving_mesh(*shape)
+            if mesh.coords is None:
+                continue
+            if (model, dtype) not in modules:
+                modules[(model, dtype)] = mesh_module(
+                    model, dtype, card, inp["preds"][model])
+            module = modules[(model, dtype)]
+            x, kw = inp["x"][name], inp["kwargs"][name]
+            fn = module.make_serving_fn(mesh=mesh, **kw)
+            fn(x)
+            _zero(counters)
+            dets, valid = fn(x)
+            launches = _count(counters)
+            out["cases"][name] = {"dets": dets.cpu(), "valid": valid.cpu(),
+                                  "launches": launches,
+                                  "coords": mesh.coords, "stats": fn.stats}
+            if name in inp["timed"]:
+                out["times"][name] = mesh_times(fn, module, x, kw,
+                                                inp["time_reps"])
+    finally:
+        pm.destroy_distributed()
+    torch.save(out, Path(root) / f"mesh_rank{rank}.pt")
+
+
+def mesh_inputs(rng, card, cases=MESH_CASES, timed=MESH_TIMED):
+    """The parent's part before the ranks: each case's uint8 batch, seeded
+    models with spread scores, the int8 tables calibrated here, thresholds
+    in a gap of each case's own scores, and each case's one-process
+    `serve` on the card with its launch counts: (inputs for the ranks,
+    references, the modules)."""
+    import torch
+
+    counters = _launch_counters()
+    frames, nb = {}, max([2] + [c[4] for c in cases])
+    for name, model, _, _, b, px, _ in cases:
+        frames.setdefault((model, px), rng.integers(
+            0, 256, (nb, px, px, 3), dtype=np.uint8))
+    preds, modules = {}, {}
+    for name, model, dtype, shape, b, px, mode in cases:
+        if model not in preds:
+            m = spread_scores(mesh_module(model, "float32", card),
+                              frames[(model, px)])
+            preds[model] = {k: v.cpu() for k, v in m.state_dict().items()
+                            if "_preds." in k}
+        if (model, dtype) not in modules:
+            modules[(model, dtype)] = mesh_module(model, dtype, card,
+                                                  preds[model])
+    tables, inp, refs = {}, {"x": {}, "kwargs": {}}, {}
+    for name, model, dtype, shape, b, px, mode in cases:
+        module = modules[(model, dtype)]
+        x = frames[(model, px)][:b]
+        table = None
+        if mode is not None:  # on the host: the ranks read it from there
+            if (model, dtype) not in tables:
+                tables[(model, dtype)] = {
+                    k: v.cpu() for k, v in module.calibrate_int8(
+                        frames[(model, px)]).items()}
+            table = tables[(model, dtype)]
+        with torch.inference_mode():
+            out = module.forward_body(x, mode, table).float()
+        scores = (out[..., 4] * out[..., 5:].amax(-1)).cpu().numpy()
+        thr, gap = mesh_threshold(scores)
+        kw = mesh_kwargs(thr, mode, table)
+        # at the ranks' own batch: each `data` share served alone
+        share = b // shape[0]
+        parts = [x[i:i + share] for i in range(0, b, share)]
+        module.serve(parts[0], **kw)
+        _zero(counters)
+        got = [module.serve(part, **kw) for part in parts[:1]]
+        launches = _count(counters)
+        got += [module.serve(part, **kw) for part in parts[1:]]
+        dets, valid = (torch.cat(t).cpu().numpy() for t in zip(*got))
+        if valid.sum(1).min() < INT8_MIN_DETS:
+            raise AssertionError(f"{name}: {valid.sum(1).tolist()} "
+                                 f"detections at {thr:.4f}")
+        refs[name] = {"dets": dets, "valid": valid, "launches": launches,
+                      "thr": thr, "gap": gap}
+        if shape[0] > 1:  # and one call on the whole batch
+            refs[name]["batch"] = tuple(t.cpu().numpy()
+                                        for t in module.serve(x, **kw))
+        inp["x"][name], inp["kwargs"][name] = x, kw
+    inp.update(cases=cases, preds=preds, timed=timed,
+               time_reps=MESH_TIME_REPS)
+    return inp, refs, modules
+
+
+def mesh_nccl(module, x, kw, root):
+    """The (1, 1) mesh through an NCCL process group of world size 1,
+    deterministic cuDNN: the same bits as `serve`, with the launch counts
+    read around it (its data gather goes through NCCL)."""
+    import torch
+
+    from yolox_tpu_torch.parallel import mesh as pm
+
+    counters = _launch_counters()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    pm.init_distributed("nccl", f"file://{root}/mesh_world1", 1, 0,
+                        device=torch.device("cuda",
+                                            torch.cuda.current_device()),
+                        timeout=MESH_TIMEOUT_S)
+    try:
+        fn = module.make_serving_fn(mesh=pm.serving_mesh(1, 1), **kw)
+        want = module.serve(x, **kw)
+        fn(x)
+        _zero(counters)
+        got = fn(x)
+        launches = _count(counters)
+        gathers = fn.stats["data"]["gathers"]
+    finally:
+        pm.destroy_distributed()
+        torch.backends.cudnn.deterministic = saved
+    out = {"bit_equal": all(torch.equal(g, w) for g, w in zip(got, want)),
+           "data_gathers": gathers, "launches": launches}
+    log("serving mesh (1, 1) over NCCL at world size 1 against serve: "
+        + json.dumps(out))
+    if not out["bit_equal"] or gathers != 1:
+        raise AssertionError("the NCCL (1, 1) mesh is not serve bit for bit")
+    return out
+
+
+def mesh_within(name, got_d, got_v, want_d, want_v, float32):
+    """Meshed detections against a one-process reference at tolerance:
+    float32 at `assert_dets_match`'s, bf16 outputs row by row at
+    `match_rows_free_labels`'s (one bf16 rounding moves a box by up to an
+    eighth of a pixel), every row paired. Returns (label flips, max box
+    |d|, max score |d|)."""
+    np.testing.assert_array_equal(got_v.sum(1), want_v.sum(1))
+    if float32:
+        assert_dets_match(got_d, got_v, want_d, want_v)
+    flips, box_d, score_d = 0, 0.0, 0.0
+    for g, gv, w, wv in zip(got_d, got_v, want_d, want_v):
+        f, _, bd, sd = match_rows_free_labels(g[gv], w[wv])
+        flips, box_d, score_d = flips + f, max(box_d, bd), max(score_d, sd)
+    if flips > INT8_LABEL_FLIPS * want_v.sum():
+        raise AssertionError(f"{name}: {flips} labels differ")
+    return flips, box_d, score_d
+
+
+def mesh_check(name, shape, px, rank, ref, float32, exact=True):
+    """A rank's meshed result against the one-process `serve` on the card
+    at the rank's own batch (`ref["dets"]`, `ref["valid"]`): bit for bit
+    if `exact`, else at `mesh_within`'s tolerances; for a data split also
+    against one call on the whole batch (`ref["batch"]`) at those
+    tolerances (cuDNN may take another algorithm for another batch).
+    `float32`: the outputs are float32 (not bf16, not int8 HBM's bf16
+    predictions). Launches as one process's where the rank has rows,
+    else K2's alone. Returns (bit-equal at its batch, where it is not the
+    comparison's (label flips, max box |d|, max score |d|), the same of
+    the whole-batch comparison), each None where not made."""
+    got_d, got_v = rank["dets"].numpy(), rank["valid"].numpy()
+    bits = bool(np.array_equal(got_v, ref["valid"])
+                and np.array_equal(got_d, ref["dets"]))
+    own = None
+    if not bits:
+        if exact:
+            raise AssertionError(
+                f"{name}, rank at {rank['coords']}: not one process's bits: "
+                f"valid {got_v.sum(1).tolist()} against "
+                f"{ref['valid'].sum(1).tolist()}")
+        own = mesh_within(name, got_d, got_v, ref["dets"], ref["valid"],
+                          float32)
+    want = dict(ref["launches"])
+    if not _has_rows(px, shape, rank["coords"]):  # K2 alone
+        want = {k: n if k == "nms" else 0 for k, n in want.items()}
+    if rank["launches"] != want:
+        raise AssertionError(f"{name}, rank at {rank['coords']}: launched "
+                             f"{rank['launches']}, want {want}")
+    if "batch" not in ref:
+        return bits, own, None
+    return bits, own, mesh_within(name, got_d, got_v, *ref["batch"],
+                                  float32)
+
+
+def run_mesh(cfg, rng, lines, cases=MESH_CASES, timed=MESH_TIMED,
+             cards=None, backend="gloo", exact=True):
+    """Phase 14: the serving meshes, MESH_WORLD gloo ranks sharing the
+    card (or a `backend` rank on each of `cards`, references on CARD),
+    every rank held bit for bit to one process (`exact`) or at
+    `mesh_within`'s tolerances, its bit-equality printed. Returns each
+    kernel's launches summed over the ranks' checked meshed calls."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    card = CARD
+    shared = cards is None
+    cards = [card] * MESH_WORLD if shared else list(cards)
+    totals = dict.fromkeys(_launch_counters(), 0)
+    inp, refs, modules = mesh_inputs(rng, card, cases, timed)
+    res = {"card": nvidia_smi() if card != "cpu" else "cpu",
+           "world": len(cards), "backend": backend}
+    with tempfile.TemporaryDirectory() as root:
+        if shared and torch.device(card).type == "cuda":
+            name = timed[0]
+            res["nccl_1x1"] = mesh_nccl(
+                modules[("yolox_s", "float32")], inp["x"][name],
+                mesh_kwargs(refs[name]["thr"], None, None), root)
+            _add(totals, res["nccl_1x1"]["launches"])
+        del modules
+        torch.save(inp, Path(root) / "mesh_inputs.pt")
+        t0 = time.perf_counter()
+        mp.spawn(mesh_rank, args=(root, cards, backend), nprocs=len(cards),
+                 join=True)
+        res["ranks_s"] = time.perf_counter() - t0
+        ranks = [torch.load(Path(root) / f"mesh_rank{r}.pt",
+                            weights_only=False) for r in range(len(cards))]
+    res["cases"] = {}
+    for name, model, dtype, shape, b, px, mode in inp["cases"]:
+        members = [r["cases"][name] for r in ranks if name in r["cases"]]
+        if len(members) != shape[0] * shape[1]:
+            raise AssertionError(f"{name}: {len(members)} ranks served")
+        checked = [mesh_check(name, shape, px, r, refs[name],
+                              dtype == "float32" and mode is None, exact)
+                   for r in members]
+        bits, own, batch = ([c[i] for c in checked] for i in range(3))
+        for r in members:
+            _add(totals, r["launches"])
+        st = members[0]["stats"]["space"]
+        res["cases"][name] = {
+            "valid": refs[name]["valid"].sum(1).tolist(),
+            "threshold": refs[name]["thr"], "gap": refs[name]["gap"],
+            "bit_equal": bits, "not_bit_equal": own, "whole_batch": batch,
+            "exchanges": [r["stats"]["space"]["exchanges"] for r in members],
+            "exchange_bytes": [r["stats"]["space"]["exchange_bytes"]
+                               for r in members],
+            "gather_bytes": st["gather_bytes"],
+            "launches": [r["launches"] for r in members]}
+        c = res["cases"][name]
+        log(f"mesh {name} ({model} {dtype}, {shape}, b{b}, {px} px, int8 "
+            f"{mode}): against one process at a rank's batch, bit-equal "
+            f"{bits}"
+            + ("" if all(bits) else f" (label flips, box max |d|, score max "
+               f"|d| where not: {own})")
+            + f", {c['valid']} detections an image at "
+            f"{c['threshold']:.4f} (gap {c['gap']:.3g})"
+            + ("" if batch[0] is None else
+               f"; against the whole batch (label flips, box max |d|, score "
+               f"max |d|) {batch}")
+            + f"; exchanges {c['exchanges']}, bytes {c['exchange_bytes']}")
+    res["times"] = [r["times"] for r in ranks if r["times"]]
+    what = ("what a rank pays on a shared card: no scaling figure" if shared
+            else f"{backend}, one card a rank")
+    for r in ranks:
+        for name, t in r["times"].items():
+            log(f"mesh times, rank {r['rank']}, {name} ({what}): meshed "
+                f"{t['meshed_ms']:.3f} ms against one process "
+                f"{t['one_process_ms']:.3f} ms; {t['exchanges']} exchanges a "
+                f"call, {t['exchange_bytes']} bytes sent, "
+                f"{t['exchange_ms']:.3f} ms of host time in them; gathered "
+                f"{t['gather_bytes']} bytes a rank")
+    res["launches"] = totals
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(("phase 14 (serving meshes)" if shared else
+         f"serving meshes ({backend}, {len(cards)} ranks)")
+        + f" wall: {res['wall_s']:.1f} s; card: {res['card']}")
+    lines.append({"mesh": res})
+    return totals
+
+
 def main() -> int:
     try:
         import torch
@@ -5255,12 +5661,14 @@ def main() -> int:
         cfg, len(shapes), plain["bfloat16_fused"].get("device_ms"), lines)
     cli_launches = run_cli(cfg, rng, lines)
     parallel_launches = run_parallel(cfg, rng, len(shapes), lines)
+    mesh_launches = run_mesh(cfg, rng, lines)
     for entry in kernels:
         key = {"stem_conv_bn_act": "stem", "nms_keep": "nms"}.get(
             entry["name"], entry["name"])
         entry["launches_trainer"] = trainer_launches[key]
         entry["launches_cli"] = cli_launches[key]
         entry["launches_parallel"] = parallel_launches[key]
+        entry["launches_mesh"] = mesh_launches[key]
     for line in lines:
         log(json.dumps(line))
     log(json.dumps({"kernels": kernels}))

@@ -126,8 +126,11 @@ def test_export_no_decode_and_int8_without_images(setup):
 
 def test_serving_fn_export_int8_hbm_and_mesh(setup):
     """`make_serving_fn` with an int8-in-HBM table exports with Q1 and the
-    stem, and is bit-equal to `serve` in memory; a mesh raises."""
+    stem, and is bit-equal to `serve` in memory; a meshed one (here a
+    (1, 1) mesh, which needs no process group) refuses to be exported,
+    by `export_program` and by `torch.export` alike."""
     from yolox_tpu_torch.cli.export import export_program
+    from yolox_tpu_torch.parallel.mesh import serving_mesh
 
     _, module, _, x = setup
     table = module.calibrate_int8(x)
@@ -140,8 +143,14 @@ def test_serving_fn_export_int8_hbm_and_mesh(setup):
     want = module.serve(x, conf_thre=0.0, max_det=16, int8_hbm_qtab=table)
     for g, w in zip(program.module()(x), want):
         assert torch.equal(g, w)
-    with pytest.raises(NotImplementedError, match="serving meshes"):
-        module.make_serving_fn(mesh=object())
+    meshed = module.make_serving_fn(mesh=serving_mesh(1, 1), conf_thre=0.0,
+                                    max_det=16, int8_hbm_qtab=table)
+    with pytest.raises(RuntimeError, match="meshed serving function runs "
+                       "eagerly"):
+        export_program(meshed, x)
+    with pytest.raises(RuntimeError, match="meshed serving function runs "
+                       "eagerly"), torch.no_grad():
+        torch.export.export(meshed, (x,), strict=False)
 
 
 def test_export_refuses_int8_weights_older_than_the_parameters(setup):

@@ -74,7 +74,8 @@ def export_program(fn, x):
     `make_serving_fn` returns), in no-grad mode. `fn` is called once
     first, which makes an int8 table's quantized weights; constants made
     in inference mode are cloned, so the program also runs with autograd
-    on."""
+    on. A meshed `ServingFn` (`make_serving_fn(mesh=...)`) raises
+    RuntimeError: its exchanges between processes run eagerly only."""
     import torch
 
     fn(x)

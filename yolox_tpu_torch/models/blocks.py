@@ -26,12 +26,19 @@ numpy Generator in the same order and with the same formulas as the JAX
 package's `init`, so a seed gives the same weights in both packages.
 
 int8 PTQ serving (`ops/quant.py`): a `YoloxModule` hands its blocks one
-`Int8State` (`qstate`) and their module names (`qpath`, the calibration
+`BlockState` (`qstate`) and their module names (`qpath`, the calibration
 table's keys). While its mode is set, eval forwards calibrate
 ("calib": BaseConv input abs-maxes, per-channel `.out` / `.addout`
 entries), run the per-block ladder ("ladder") or keep activations int8
 between blocks ("hbm"), as the JAX package's `Ctx.calib_sink`,
 `int8_qtab` and `int8_hbm_qtab` do.
+
+Serving meshes (`parallel/mesh.py`): the blocks that read neighbouring
+rows (a BaseConv of ksize > 1, depthwise ones included; the Focus stem;
+SPP's max pools) run their op through `Int8Hooks.spatial`: the op itself
+unless a meshed call splits the image height, else the shared state's
+`exchange` (`parallel/halo.py::SpaceExchange.spatial`) runs it on the row
+slab extended by the neighbours' rows and crops.
 """
 
 from __future__ import annotations
@@ -127,13 +134,16 @@ def _affine(z, gamma, beta, mean, var):
     return z * conv_bwd.per_channel(scale) + conv_bwd.per_channel(bias)
 
 
-class Int8State:
-    """The int8 mode a YoloxModule's blocks share: `mode` None (float),
+class BlockState:
+    """What a YoloxModule's blocks share: the int8 `mode` None (float),
     "calib", "ladder" or "hbm"; the calibration `table`; the calibration
-    `sink` and `percentile`. Activation scales derived from the table are
-    cached while the same table object stays in use."""
+    `sink` and `percentile`; and a meshed serving call's `space` halo
+    `exchange` (None outside such a call or without a `space` split).
+    Activation scales derived from the table are cached while the same
+    table object stays in use."""
 
     def __init__(self):
+        self.exchange = None
         self.mode: Optional[str] = None
         self.table: Optional[dict] = None
         self.sink: Optional[dict] = None
@@ -160,13 +170,19 @@ class Int8State:
 
 
 class Int8Hooks:
-    """What a block with int8 hooks carries: the module's `Int8State` and
+    """What a block with int8 hooks carries: the module's `BlockState` and
     its own name there (set by `YoloxModule`), and a cache of its
     quantized weights."""
 
-    qstate: Optional[Int8State] = None
+    qstate: Optional[BlockState] = None
     qpath: str = ""
     _q_cache = None
+
+    def spatial(self, x, ksize, stride, op, axis=2):
+        """`op(x)` for an op that reads neighbouring rows; on a meshed
+        call's row slab, through its halo exchange."""
+        ex = None if self.qstate is None else self.qstate.exchange
+        return op(x) if ex is None else ex.spatial(x, ksize, stride, op, axis)
 
     def int8_mode(self) -> Optional[str]:
         st = self.qstate
@@ -249,6 +265,13 @@ class BaseConv(Int8Hooks, nn.Module):
         _reset_bn(self.bn)
 
     def forward(self, x):
+        c = self.conv
+        if c.kernel_size[0] > 1:
+            return self.spatial(x, c.kernel_size[0], c.stride[0],
+                                self._forward)
+        return self._forward(x)
+
+    def _forward(self, x):
         mode = self.int8_mode()
         if mode is not None:
             return self._forward_int8(x, mode)
@@ -446,10 +469,12 @@ class SPPBottleneck(Int8Hooks, nn.Module):
 
     def forward(self, x):
         x = self.conv1(x)
-        if self.int8_mode() == "hbm":  # pool the codes, concat codes+scales
-            pools = [quant.q_max_pool_same(x, k) for k in self.kernel_sizes]
+        hbm = self.int8_mode() == "hbm"  # pool the codes, concat codes+scales
+        pool = quant.q_max_pool_same if hbm else max_pool_same
+        pools = self.spatial(x, max(self.kernel_sizes), 1,
+                             lambda t: [pool(t, k) for k in self.kernel_sizes])
+        if hbm:
             return self.conv2(quant.q_concat([x] + pools))
-        pools = [max_pool_same(x, k) for k in self.kernel_sizes]
         return self.conv2(torch.cat([x] + pools, dim=1))
 
 
@@ -528,6 +553,11 @@ class Focus(Int8Hooks, nn.Module):
             return self.conv(torch.cat([x[..., ::2, ::2], x[..., 1::2, ::2],
                                         x[..., ::2, 1::2], x[..., 1::2, 1::2]],
                                        dim=1))
+        # the folded 2k x 2k stride-2 conv on the NHWC image's rows
+        return self.spatial(x, 2 * self.conv.conv.kernel_size[0], 2,
+                            self._forward_eval, axis=1)
+
+    def _forward_eval(self, x):
         mode = self.int8_mode()
         if mode == "ladder":
             return self._forward_ladder(x)

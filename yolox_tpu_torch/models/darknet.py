@@ -2,7 +2,10 @@
 counterparts of the JAX package's `yolox_tpu/models/darknet.py`: the same
 topologies and state-dict keys. Both take the NHWC image: CspDarknet's
 Focus stem runs as the stem kernel K1, Darknet's 3x3 BaseConv stem reads
-it as a channels_last NCHW view; every later stage is NCHW.
+it as a channels_last NCHW view; every later stage is NCHW. On a serving
+mesh's row slab both stems take their halo rows like every other op that
+reads neighbouring rows (`parallel/halo.py`): the view's extension keeps
+its channels_last layout.
 """
 
 from __future__ import annotations

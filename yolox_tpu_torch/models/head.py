@@ -139,11 +139,26 @@ class YoloxHead(nn.Module):
         sigmoid(cls)...), grid_l (h*w, 2), stride_l (h*w, 1). The fused
         serving postprocess reduces each level before concatenating.
         """
+        return self.levels_from_maps(self.raw_level_maps(xin))
+
+    def raw_level_maps(self, xin):
+        """Each level's (B, 5+C, h, w) map of (tx, ty, tw, th, sigmoid(obj),
+        sigmoid(cls)...): all a row slab of the image needs to compute,
+        since the grid comes from the whole image (`levels_from_maps`)."""
+        return [torch.cat([reg, obj.sigmoid(), cls.sigmoid()], dim=1)
+                for reg, obj, cls in self._level_outputs(xin)]
+
+    @staticmethod
+    def map_dtype(dtype, int8_mode=None):
+        """The dtype of `raw_level_maps` for a module of `dtype`: the HBM
+        mode's prediction convs run in `quant.HBM_PRED_DTYPE`."""
+        return quant.HBM_PRED_DTYPE if int8_mode == "hbm" else dtype
+
+    def levels_from_maps(self, maps):
+        """`forward_raw_levels` of whole-image `raw_level_maps`."""
         outs, grids, strides = [], [], []
-        for (reg, obj, cls), stride in zip(self._level_outputs(xin),
-                                           self.strides):
-            h, w = reg.shape[2:]
-            out = torch.cat([reg, obj.sigmoid(), cls.sigmoid()], dim=1)
+        for out, stride in zip(maps, self.strides):
+            h, w = out.shape[2:]
             outs.append(out.flatten(2).transpose(1, 2))
             grids.append(level_grid(h, w, out.dtype, out.device))
             strides.append(torch.full((h * w, 1), stride, dtype=out.dtype,

@@ -16,6 +16,14 @@ int8 PTQ serving (`ops/quant.py`): `calibrate_int8` collects the table,
 int8 kernels Q1 (dense) and Q2 (depthwise); `enable_int8` makes `forward`
 run one of them, so the evaluators measure the quantized model.
 
+Serving meshes (`parallel/mesh.py`): `make_serving_fn(mesh=...)`, called
+on every rank of a `ServingMesh` with the same global batch, splits the
+batch over `data` and the image height over `space` (halo exchanges,
+`parallel/halo.py`), gathers each pyramid level's raw map over `space`
+before the grids are built and the postprocess (K2) runs on every rank,
+then the detections over `data`: every rank returns what `serve` returns
+for the whole batch in one process.
+
 Entry points place the module on `cuda` unless the caller passes
 `device="cpu"`; with no CUDA device and no device asked for they raise.
 The package never changes PyTorch's global flags: a caller comparing
@@ -41,7 +49,7 @@ from yolox_tpu_torch.models.blocks import (
     BaseConv,
     Focus,
     Int8Hooks,
-    Int8State,
+    BlockState,
     RematStages,
 )
 from yolox_tpu_torch.models.head import YoloxHead
@@ -50,6 +58,14 @@ from yolox_tpu_torch.models.processor import Detections, YoloxProcessor
 from yolox_tpu_torch.models.weights import load_pth_state_dict, nested_to_flat
 from yolox_tpu_torch.ops.nms import postprocess_fused_levels
 from yolox_tpu_torch.ops.quant import merge_amax
+from yolox_tpu_torch.parallel import halo
+from yolox_tpu_torch.parallel.mesh import (
+    ServingMesh,
+    gather_batch,
+    image_sharding,
+    process_count,
+    space_exchange,
+)
 
 _WEIGHTS_URL = (
     "https://github.com/Megvii-BaseDetection/YOLOX/releases/download/"
@@ -186,6 +202,51 @@ class ServingFn(nn.Module):
             return self.body(x, **self.kwargs)
 
 
+class MeshedServingFn(ServingFn):
+    """`make_serving_fn(mesh=...)`: `fn(x)` is `serve_meshed(x, mesh,
+    ...)`, eager only (its collectives cannot be exported); `stats` has
+    the last call's exchanges and gathers (`halo.Transport.stats`)."""
+
+    def __init__(self, body, mesh: ServingMesh, **kwargs):
+        super().__init__(body, mesh=mesh, **kwargs)
+        self.stats = None
+
+    def forward(self, x):
+        if torch.compiler.is_exporting():
+            raise RuntimeError(
+                "a meshed serving function runs eagerly, its halo exchanges "
+                "and gathers between processes: torch.export takes the "
+                "one-process make_serving_fn() (no mesh)")
+        mesh = self.kwargs["mesh"]
+        for t in (mesh.space, mesh.data):
+            t.stats = dict.fromkeys(t.stats, 0)
+        with torch.inference_mode():
+            out = self.body(x, **self.kwargs)
+        self.stats = {"space": dict(mesh.space.stats),
+                      "data": dict(mesh.data.stats)}
+        return out
+
+
+def _int8_choice(int8_qtab, int8_hbm_qtab):
+    """(mode, table) of a serving call's int8 arguments."""
+    if int8_hbm_qtab is not None:
+        return "hbm", int8_hbm_qtab
+    if int8_qtab is not None:
+        return "ladder", int8_qtab
+    return None, None
+
+
+def _nhwc(x) -> torch.Tensor:
+    """(B, H, W, 3) or (H, W, 3) image(s), NHWC or NCHW, numpy or tensor
+    -> an NHWC tensor (a view where it can be)."""
+    x = torch.as_tensor(x)
+    if x.dim() == 3:
+        x = x[None]
+    if x.shape[1] <= 4 and x.shape[3] > 4:  # NCHW -> NHWC
+        x = x.permute(0, 2, 3, 1)
+    return x
+
+
 class YoloxModule(nn.Module):
     """The network: a PAFPN (or YoloFpn) backbone + decoupled head. Built
     in eval mode."""
@@ -200,11 +261,12 @@ class YoloxModule(nn.Module):
         # K1 reads uint8 images; a 3x3 BaseConv stem (Darknet) takes floats
         self._focus_stem = any(isinstance(m, Focus)
                                for m in self.backbone.modules())
-        self.int8_state = Int8State()
+        self.block_state = BlockState()
         self._int8_enabled = None  # (mode, table) from enable_int8
+        self._meshed = False  # inside a meshed serving call
         for name, m in self.named_modules():
             if isinstance(m, Int8Hooks):
-                m.qstate, m.qpath = self.int8_state, name
+                m.qstate, m.qpath = self.block_state, name
         self.eval()
 
     # ---------------- construction ----------------
@@ -269,12 +331,7 @@ class YoloxModule(nn.Module):
         if self.training:
             raise RuntimeError("forward and serve are eval-mode paths; call "
                                ".eval() first (forward_train trains)")
-        x = torch.as_tensor(x)
-        if x.dim() == 3:
-            x = x[None]
-        if x.shape[1] <= 4 and x.shape[3] > 4:  # NCHW -> NHWC
-            x = x.permute(0, 2, 3, 1)
-        x = x.to(self.device)
+        x = _nhwc(x).to(self.device)
         if x.dtype != torch.uint8 or not self._focus_stem \
                 or mode not in (None, "hbm"):
             x = x.to(self.dtype)
@@ -283,13 +340,25 @@ class YoloxModule(nn.Module):
     @contextlib.contextmanager
     def _int8_mode(self, mode, table=None, percentile=None):
         """Run the blocks in int8 `mode` (None: float) within the block."""
-        st = self.int8_state
+        st = self.block_state
         saved = (st.mode, st.table, st.percentile)
         st.mode, st.table, st.percentile = mode, table, percentile
         try:
             yield st
         finally:
             st.mode, st.table, st.percentile = saved
+
+    @contextlib.contextmanager
+    def _meshed_call(self, exchange):
+        """The blocks run a meshed call's slab, with `exchange` (None: no
+        `space` split), within the block."""
+        st = self.block_state
+        saved = (self._meshed, st.exchange)
+        self._meshed, st.exchange = True, exchange
+        try:
+            yield
+        finally:
+            self._meshed, st.exchange = saved
 
     @torch.inference_mode()
     def forward(self, x):
@@ -349,12 +418,7 @@ class YoloxModule(nn.Module):
                    int8_hbm_qtab: Optional[dict] = None):
         """`serve` without the inference-mode decorator: what
         `torch.export` traces (`make_serving_fn`)."""
-        if int8_hbm_qtab is not None:
-            mode, table = "hbm", int8_hbm_qtab
-        elif int8_qtab is not None:
-            mode, table = "ladder", int8_qtab
-        else:
-            mode, table = None, None
+        mode, table = _int8_choice(int8_qtab, int8_hbm_qtab)
         with self._int8_mode(mode, table):
             fpn_outs = self.backbone(self._image_batch(x, mode))
             outs, grids, strides = self.head.forward_raw_levels(fpn_outs)
@@ -374,17 +438,61 @@ class YoloxModule(nn.Module):
         by an eager call, so call `fn` before exporting it, and again
         after changing the parameters in place: the export raises if a
         block's parameters changed since its weights were made.
-        A serving `mesh` (the image height split across cards) is not
-        ported."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving meshes are not ported to yolox_tpu_torch yet "
-                "(ROADMAP.md: the serving meshes, parallel/mesh.py "
-                "serving_mesh)")
-        return ServingFn(self.serve_body, conf_thre=conf_thre,
-                         nms_thre=nms_thre,
-                         class_agnostic=class_agnostic, max_det=max_det,
-                         int8_qtab=int8_qtab, int8_hbm_qtab=int8_hbm_qtab)
+        With a `ServingMesh` (`parallel/mesh.py`: `data_parallel_mesh`,
+        `serving_mesh`), the meshed step (`serve_meshed`): called on every
+        rank of the mesh with the same global batch, it returns on every
+        rank the (dets, valid) of `serve` on that batch, eagerly only. A
+        mesh larger than the process group raises."""
+        kwargs = dict(conf_thre=conf_thre, nms_thre=nms_thre,
+                      class_agnostic=class_agnostic, max_det=max_det,
+                      int8_qtab=int8_qtab, int8_hbm_qtab=int8_hbm_qtab)
+        if mesh is None:
+            return ServingFn(self.serve_body, **kwargs)
+        if not isinstance(mesh, ServingMesh):
+            raise TypeError(f"mesh must be a parallel.mesh.ServingMesh "
+                            f"(serving_mesh, data_parallel_mesh), not "
+                            f"{type(mesh).__name__}")
+        if mesh.size > process_count():
+            raise ValueError(f"a {mesh.size}-rank serving mesh in a process "
+                             f"group of {process_count()}")
+        return MeshedServingFn(self.serve_meshed, mesh, **kwargs)
+
+    def serve_meshed(self, x, mesh: ServingMesh, conf_thre: float = 0.5,
+                     nms_thre: float = 0.65, class_agnostic: bool = False,
+                     max_det: int = 256, int8_qtab: Optional[dict] = None,
+                     int8_hbm_qtab: Optional[dict] = None):
+        """`serve_body` of the global batch `x` over `mesh`, on this rank's
+        images (`data`) and rows (`space`): the backbone and the head run
+        on the row slab with halo exchanges, each level's raw map is
+        gathered over `space` in row order, the postprocess runs on the
+        whole maps, and the detections are gathered over `data`. A rank
+        with an empty slab runs no layer and joins the gathers."""
+        mode, table = _int8_choice(int8_qtab, int8_hbm_qtab)
+        x = _nhwc(x)
+        b, h, w, _ = x.shape
+        shard = image_sharding(mesh, b, h)
+        exchange = space_exchange(mesh, shard)
+        if exchange is not None and w % halo.SLAB_STRIDE:
+            raise ValueError(f"the image width {w} is not a multiple of "
+                             f"{halo.SLAB_STRIDE}")
+        r0, r1 = shard.rows
+        maps = None
+        with self._int8_mode(mode, table), self._meshed_call(exchange):
+            if r1 > r0:
+                maps = self.head.raw_level_maps(self.backbone(
+                    self._image_batch(x[shard.images, r0:r1], mode)))
+            if exchange is not None:
+                nb = shard.images.stop - shard.images.start
+                shapes = [(nb, 5 + self.head.num_classes, h // s, w // s)
+                          for s in self.head.strides]
+                maps = exchange.gather_rows(
+                    maps, shapes, self.head.map_dtype(self.dtype, mode),
+                    self.device)
+        outs, grids, strides = self.head.levels_from_maps(maps)
+        dets, valid = postprocess_fused_levels(
+            outs, grids, strides, self.head.num_classes, conf_thre,
+            nms_thre, class_agnostic, max_det)
+        return gather_batch(mesh, dets, valid)
 
     @torch.no_grad()
     def visualize(self, x, targets, save_prefix: str = "assign_vis_"):
@@ -447,6 +555,10 @@ class YoloxModule(nn.Module):
         max. Returns {key: float32 tensor} on the module's device, for
         `serve(int8_qtab=...)`, `serve(int8_hbm_qtab=...)` and
         `enable_int8`."""
+        if self._meshed:
+            raise RuntimeError("calibrate_int8 runs in one process: "
+                               "calibrate before the meshed call and hand "
+                               "every rank the table")
         if isinstance(batches, (np.ndarray, torch.Tensor)):
             batches = [batches]
         table: dict = {}

@@ -46,6 +46,7 @@ from yolox_tpu_torch.ops.int8_conv import (
 )
 
 INT8_MAX = 127.0
+HBM_PRED_DTYPE = torch.bfloat16  # the HBM mode's prediction convs
 _EPS = 1e-12
 BN_EPS = 1e-3
 
@@ -293,7 +294,7 @@ def q_max_pool_same(qt: QTensor, ksize: int) -> QTensor:
     return QTensor(pooled.to(torch.int8), qt.scale)
 
 
-def pred_conv_hbm(qt: QTensor, weight, bias, compute_dtype=torch.bfloat16):
+def pred_conv_hbm(qt: QTensor, weight, bias, compute_dtype=HBM_PRED_DTYPE):
     """1x1 prediction conv on a QTensor: the input scale folds into the
     float32 weight, then the conv runs in `compute_dtype` (bf16, as the
     JAX package calls it) on the raw codes; un-quantized output."""

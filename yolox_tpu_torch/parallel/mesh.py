@@ -13,16 +13,20 @@ after the backward rather than `lax.pmean` inside the program:
 - logged losses -> the same all-reduce (`pmean_floats(losses)`);
 - rank 0 -> `process_index() == 0`;
 - evaluation's detection gather -> `all_gather_objects`, ordered by rank;
-- the preemption sync point -> `any_rank`, a flag all-reduced with MAX.
+- the preemption sync point -> `any_rank`, a flag all-reduced with MAX;
+- the serving meshes -> `ServingMesh`: `data_parallel_mesh(n)` splits the
+  batch over `data`, `serving_mesh(n_data, n_space)` also splits the image
+  height over `space` (rank r = d * n_space + s, row-major as JAX's
+  `reshape(n_data, n_space)` of the device list), each a set of process
+  groups; `batch_sharding` / `image_sharding` say which images and rows a
+  rank takes, `parallel/halo.py` exchanges the halos, and
+  `YoloxModule.make_serving_fn(mesh=...)` runs the meshed call.
 
 Backends: NCCL for one process per CUDA device, gloo on the CPU and for
 several ranks that share one CUDA device (NCCL refuses two ranks on one
 GPU). gloo takes CUDA tensors and copies them through pinned host memory
 itself (`scripts/torch_gloo_allreduce.py`: as fast as staging the bucket
 by hand).
-
-The serving meshes of the JAX package (`serving_mesh`, `image_sharding`:
-the batch and the image height split across devices) are not ported.
 """
 
 from __future__ import annotations
@@ -31,16 +35,18 @@ import datetime
 import os
 import socket
 import tempfile
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from yolox_tpu_torch.parallel.halo import (
+    SpaceExchange,
+    Transport,
+    as_bytes,
+    row_slabs,
+)
 from yolox_tpu_torch.utils.logger import logger
-
-_SERVING_MESH = ("serving meshes (the batch and the image height split "
-                 "across devices) are not ported to yolox_tpu_torch yet "
-                 "(ROADMAP.md: the serving meshes)")
 
 
 def is_distributed() -> bool:
@@ -158,12 +164,148 @@ class MeanReducer:
                 offset += n
 
 
-def serving_mesh(n_data: int, n_space: int = 1):
-    raise NotImplementedError(_SERVING_MESH)
+class ServingMesh:
+    """A (`data`, `space`) serving mesh over the first n_data * n_space
+    ranks of the default process group: rank r sits at (d, s) = (r //
+    n_space, r % n_space). `space_group` holds this rank's row of the
+    mesh (its d), `data_group` its column (its s); both None for a (1, 1)
+    mesh without a process group, and `coords` None on a rank outside the
+    mesh. `space` / `data` are the groups' `Transport`s."""
+
+    def __init__(self, n_data: int, n_space: int = 1, rank: int = 0,
+                 space_group=None, data_group=None, backend: str = "gloo"):
+        if n_data < 1 or n_space < 1:
+            raise ValueError(f"a serving mesh needs n_data, n_space >= 1, "
+                             f"got ({n_data}, {n_space})")
+        self.n_data, self.n_space, self.rank = n_data, n_space, rank
+        self.space_group, self.data_group = space_group, data_group
+        self.space = Transport(space_group, backend)
+        self.data = Transport(data_group, backend)
+
+    @property
+    def size(self) -> int:
+        return self.n_data * self.n_space
+
+    @property
+    def coords(self) -> Optional[Tuple[int, int]]:
+        if self.rank >= self.size:
+            return None
+        return divmod(self.rank, self.n_space)
+
+    def space_ranks(self) -> Tuple[int, ...]:
+        """The global ranks of this rank's `space` group, by s."""
+        d = self.coords[0]
+        return tuple(d * self.n_space + s for s in range(self.n_space))
+
+    def __repr__(self):
+        return (f"ServingMesh(n_data={self.n_data}, n_space={self.n_space}, "
+                f"rank={self.rank}, coords={self.coords})")
 
 
-def image_sharding(mesh):
-    raise NotImplementedError(_SERVING_MESH)
+def serving_mesh(n_data: int, n_space: int = 1) -> ServingMesh:
+    """The (`data`, `space`) mesh over the first n_data * n_space ranks of
+    the default process group (JAX's `serving_mesh`). Every rank of the
+    default group calls it, since each of the mesh's groups is made by a
+    collective `dist.new_group`; a rank past the mesh gets a mesh it
+    cannot serve on. A (1, 1) mesh needs no process group."""
+    rank, world = process_rank_and_count()
+    mesh = ServingMesh(n_data, n_space, rank)
+    if mesh.size > world:
+        raise ValueError(f"a ({n_data}, {n_space}) serving mesh needs "
+                         f"{mesh.size} ranks, the process group has {world}")
+    if not is_distributed():
+        return mesh
+    backend = dist.get_backend()
+    space = [dist.new_group([d * n_space + s for s in range(n_space)])
+             for d in range(n_data)]
+    data = [dist.new_group([d * n_space + s for d in range(n_data)])
+            for s in range(n_space)]
+    if mesh.coords is None:
+        return ServingMesh(n_data, n_space, rank, backend=backend)
+    d, s = mesh.coords
+    mesh = ServingMesh(n_data, n_space, rank, space[d], data[s], backend)
+    if backend == "nccl":
+        # a collective first, so that later point-to-point calls from a
+        # subset of the group find its communicator made
+        for g in (mesh.space_group, mesh.data_group):
+            dist.barrier(group=g, device_ids=[torch.cuda.current_device()])
+    return mesh
+
+
+def data_parallel_mesh(n: Optional[int] = None) -> ServingMesh:
+    """A `data` mesh of n ranks (default: all of the process group's):
+    the batch split, the image whole (JAX's `data_parallel_mesh`)."""
+    return serving_mesh(n or process_count(), 1)
+
+
+def _coords(mesh: ServingMesh) -> Tuple[int, int]:
+    if mesh.coords is None:
+        raise ValueError(f"rank {mesh.rank} is outside the ({mesh.n_data}, "
+                         f"{mesh.n_space}) serving mesh")
+    return mesh.coords
+
+
+def batch_sharding(mesh: ServingMesh, batch: int) -> slice:
+    """This rank's images of a global batch of `batch`: batch / n_data of
+    them by its `data` coordinate. A batch that does not divide raises,
+    as JAX's sharding does."""
+    d, _ = _coords(mesh)
+    if batch % mesh.n_data:
+        raise ValueError(f"a batch of {batch} does not split over "
+                         f"{mesh.n_data} data ranks")
+    per = batch // mesh.n_data
+    return slice(d * per, (d + 1) * per)
+
+
+class ImageShard(NamedTuple):
+    """This rank's part of an NHWC batch: its `images`, its input `rows`
+    (start, stop; empty where there are fewer stride rows than `space`
+    ranks), every `space` rank's rows (`slabs`) and its own index among
+    them: the halo plan (`halo.halo_moves`)."""
+
+    images: slice
+    rows: Tuple[int, int]
+    slabs: Tuple[Tuple[int, int], ...]
+    index: int
+
+
+def image_sharding(mesh: ServingMesh, batch: int, height: int
+                   ) -> ImageShard:
+    """This rank's images, rows and halo plan of a (batch, height, W, 3)
+    batch: images over `data` (`batch_sharding`), rows over `space`
+    (`halo.row_slabs`: borders on multiples of the model's largest
+    stride)."""
+    images = batch_sharding(mesh, batch)
+    _, s = _coords(mesh)
+    slabs = row_slabs(height, mesh.n_space)
+    return ImageShard(images, slabs[s], slabs, s)
+
+
+def space_exchange(mesh: ServingMesh, shard: ImageShard
+                   ) -> Optional[SpaceExchange]:
+    """The halo exchange of `shard` over the mesh's `space` group; None
+    without a `space` split."""
+    if mesh.n_space == 1:
+        return None
+    return SpaceExchange(shard.slabs, shard.index, mesh.space_ranks(),
+                         mesh.space)
+
+
+def gather_batch(mesh: ServingMesh, *tensors: torch.Tensor):
+    """Each tensor concatenated along dim 0 over the mesh's `data` group,
+    in data-rank order (`tensors` equal in shape on every rank); as they
+    are for a mesh without process groups."""
+    if mesh.data_group is None:
+        return tensors
+    payload = torch.cat([as_bytes(t) for t in tensors])
+    got = mesh.data.all_gather(payload, payload.numel())
+    out, offset = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        part = got[:, offset:offset + n].clone().view(t.dtype)
+        out.append(part.reshape((-1,) + tuple(t.shape[1:])))
+        offset += n
+    return tuple(out)
 
 
 def dryrun_data_parallel(n: int, size: int = 64, batch_per_rank: int = 2,
