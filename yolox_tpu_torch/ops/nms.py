@@ -98,6 +98,20 @@ def postprocess_device(prediction, num_classes: int, conf_thre: float = 0.7,
     return _compact(det, keep, k, max_det)
 
 
+def postprocess_fused(outputs, grid, stride, num_classes: int,
+                      conf_thre: float = 0.7, nms_thre: float = 0.45,
+                      class_agnostic: bool = False, max_det: int = 256):
+    """Serving postprocess on the head's concatenated pre-decode outputs
+    (`YoloxHead.forward_raw`: outputs (B, A, 5 + C), grid (A, 2), stride
+    (A, 1)): every anchor is scored in the outputs' dtype, and only the
+    top `max_det` candidates are decoded, in f32. Same output contract as
+    `postprocess_device`, and bit-equal to it when `outputs` is f32."""
+    masked, tbl = _score_and_payload(outputs, grid, stride, num_classes,
+                                     conf_thre)
+    return _select_decode_nms(masked, tbl, conf_thre, nms_thre,
+                              class_agnostic, max_det)
+
+
 def postprocess_fused_levels(outs, grids, strides, num_classes: int,
                              conf_thre: float = 0.7, nms_thre: float = 0.45,
                              class_agnostic: bool = False, max_det: int = 256):
