@@ -226,11 +226,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    K2 once), 1 on moved boxes, 2 without weights (downloads refused);
    the phase's wall time.
 
+16. (run last) the profiling tools of `scripts/` (`run_profilers`), each
+   through its `main()` on yolox-s at full width and depth:
+   `torch_serve_traffic_model` (B 32), `torch_profile_serve` at B 32 in
+   bf16 with a trace and in float32 (TF32 off), `torch_trace_report` on
+   that trace, `torch_profile_train` at B 16 with `--fused-bwd` and 2
+   iterations, `torch_profile_augment` at B 16 with 2 iterations, then
+   `torch_eval_memory_ab` (its two child processes) at 512 000
+   detections on 500 images. Checked: every flop-bound and byte-bound
+   share at most `PROFILE_ROOF_LIMIT` (above it a count is wrong); the
+   serve stages' device ms rising within `PROFILE_RISE_TOL`; the trace
+   report's device time an iteration within `PROFILE_TRACE_TOL` of the
+   full-serve stage's device ms, with K1's and K2's kernels among its
+   rows; each stage's launches (K1 once a serve stage and in the
+   eval-mode forward, K2 once in the full serve, K3 and K4 once a 1x1
+   SiLU conv in the backward and the full step, K5 once a batch); K5's
+   kernel attributed to a frame of the package; both A/B modes' AP
+   equal; every one of K1-K5 launched in the phase; the phase's wall
+   time.
+
 Then JSON lines with the serve, evaluation, training, augmentation,
-int8, trainer, CLI, parallel, mesh and harness results and the kernels
-(each with its launches on every main path: `launches`,
+int8, trainer, CLI, parallel, mesh, harness and profiler results and the
+kernels (each with its launches on every main path: `launches`,
 `launches_eval`, `launches_trainer`, `launches_cli`,
-`launches_parallel`, `launches_mesh`, `launches_harness`), each phase's
+`launches_parallel`, `launches_mesh`, `launches_harness`,
+`launches_profile`), each phase's
 wall time, the `nvidia-smi` name and power limit, and as the last line
 `{"ok": true, "device": {...}}`.
 
@@ -6025,6 +6045,208 @@ def run_harnesses(lines):
     return totals
 
 
+# ------------------------------------------------- phase 16: profilers
+
+PROFILE_MODEL = "s"
+PROFILE_SERVE_B = 32
+PROFILE_SERVE_ITERS = 4
+PROFILE_TRAIN_B = 16
+PROFILE_AUG_B = 16
+PROFILE_STEP_ITERS = 2
+PROFILE_AB_DETS, PROFILE_AB_IMAGES = 512_000, 500
+# a roofline share above this means a wrong count, not a fast kernel
+PROFILE_ROOF_LIMIT = 1.05
+# each cumulative serve stage's device ms is at least the one before it,
+# within this share (the shared part's kernels may take other times)
+PROFILE_RISE_TOL = 0.05
+# the trace report's device time an iteration against the full-serve
+# stage's device ms (kernel time alone against queued elapsed time)
+PROFILE_TRACE_TOL = 0.15
+
+
+def profiler_scripts():
+    """The profiling tools of `scripts/`: (torch_serve_traffic_model,
+    torch_profile_serve, torch_trace_report, torch_profile_train,
+    torch_profile_augment, torch_eval_memory_ab)."""
+    scripts = str(REPO / "scripts")
+    sys.path.insert(0, scripts)
+    try:
+        import torch_eval_memory_ab
+        import torch_profile_augment
+        import torch_profile_serve
+        import torch_profile_train
+        import torch_serve_traffic_model
+        import torch_trace_report
+    finally:
+        sys.path.remove(scripts)
+    return (torch_serve_traffic_model, torch_profile_serve,
+            torch_trace_report, torch_profile_train, torch_profile_augment,
+            torch_eval_memory_ab)
+
+
+def _stage_launches(stage, **want):
+    """A stage row's launches against `want` (0 for kernels not named)."""
+    got = stage["launches"]
+    want = {k: want.get(k, 0) for k in got}
+    if got != want:
+        raise AssertionError(f"{stage['stage']}: launches {got}, want {want}")
+
+
+def check_serve_profile(res, on_card):
+    """Phase 16's checks of one `torch_profile_serve` result: each stage's
+    launches (K1 once, K2 once in the full serve) and, on a card, every
+    roofline share at most PROFILE_ROOF_LIMIT and device ms rising stage
+    by stage within PROFILE_RISE_TOL."""
+    stages = res["stages"]
+    if [s["stage"] for s in stages] != [
+            "backbone", "backbone+head raw", "full serve (+decode+NMS)"]:
+        raise AssertionError(f"serve stages {[s['stage'] for s in stages]}")
+    for s in stages:
+        if not np.isfinite(s["checksum"]):
+            raise AssertionError(f"{s['stage']}: checksum {s['checksum']}")
+    if not on_card:
+        return
+    _stage_launches(stages[0], stem=1)
+    _stage_launches(stages[1], stem=1)
+    _stage_launches(stages[2], stem=1, nms=1)
+    for s in stages:
+        for share in ("mfu_pct", "hbm_pct"):
+            if not s[share] <= 100 * PROFILE_ROOF_LIMIT:
+                raise AssertionError(
+                    f"serve {res['dtype']} {s['stage']}: {share} "
+                    f"{s[share]:.1f}%: a count is wrong")
+    dev = [s["device_ms"] for s in stages]
+    for lo, hi in zip(dev, dev[1:]):
+        if lo > hi * (1 + PROFILE_RISE_TOL):
+            raise AssertionError(f"serve {res['dtype']} stages' device ms "
+                                 f"{dev} do not rise")
+
+
+def check_trace_report(rep, full_serve_ms, on_card):
+    """The trace report of the full-serve trace: a device track, its time
+    an iteration within PROFILE_TRACE_TOL of the stage's device ms, K1's
+    and K2's kernels among its rows."""
+    if not on_card:
+        return
+    names = [op["name"] for op in rep["ops"]]
+    if not rep["tracks"]:
+        raise AssertionError("trace report: no device track")
+    per_iter_ms = rep["us_per_iter"] / 1e3
+    if abs(per_iter_ms - full_serve_ms) > PROFILE_TRACE_TOL * full_serve_ms:
+        raise AssertionError(f"trace report {per_iter_ms:.3f} ms an "
+                             f"iteration against full serve's device "
+                             f"{full_serve_ms:.3f} ms")
+    for kernel in ("stem_", "nms_kernel"):
+        if not any(kernel in n for n in names):
+            raise AssertionError(f"trace report: no {kernel} kernel among "
+                                 f"{len(names)} rows")
+
+
+def check_train_profile(res, n_convs, on_card):
+    """K1 once in the eval-mode forward, K3 and K4 once a 1x1 SiLU conv in
+    the backward and the full step (`--fused-bwd`), no other launch."""
+    if [s["stage"] for s in res["stages"]] != [
+            "fwd eval-mode (bf16)", "fwd train-mode (BN batch stats)",
+            "fwd + SimOTA loss", "fwd + loss + grad (bwd)",
+            "full train step"]:
+        raise AssertionError("train stages")
+    for s in res["stages"]:
+        if not np.isfinite(s["checksum"]):
+            raise AssertionError(f"{s['stage']}: checksum {s['checksum']}")
+    if not on_card:
+        return
+    eval_fwd, train_fwd, fwd_loss, grad, step = res["stages"]
+    _stage_launches(eval_fwd, stem=1)
+    _stage_launches(train_fwd)
+    _stage_launches(fwd_loss)
+    _stage_launches(grad, reduce_sums=n_convs, main_1x1=n_convs)
+    _stage_launches(step, reduce_sums=n_convs, main_1x1=n_convs)
+
+
+def check_augment_profile(res, on_card):
+    """K5 once a batch, and its kernel attributed to a frame of the
+    package in the per-op table."""
+    if not np.isfinite(res["checksum"]):
+        raise AssertionError(f"augment checksum {res['checksum']}")
+    if not on_card:
+        return
+    if res["launches"]["shear_xy"] != 1:
+        raise AssertionError(f"augment launches {res['launches']}")
+    rows = [op for op in res["ops"] if "shear_xy_kernel" in op["name"]]
+    if not rows or not all("yolox_tpu_torch/" in op["frame"] for op in rows):
+        raise AssertionError(f"augment: K5 rows {rows}")
+
+
+def run_profilers(n_convs, lines):
+    """Phase 16: the profiling tools of `scripts/` on yolox-s, each
+    through its `main()` (the evaluation-memory A/B through its child
+    processes), with the launch counters read around each run and the
+    checks above. Returns each kernel's launches over the phase."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(CARD).type == "cuda"
+    ttm, tps, ttr, ttp, tpa, tem = profiler_scripts()
+    counters = _launch_counters()
+    totals = dict.fromkeys(counters, 0)
+    res = {"card": nvidia_smi() if on_card else None, "wall_s": {}}
+    dev = ["--device", "cuda" if on_card else "cpu"]
+
+    def counted(key, fn):
+        t0 = time.perf_counter()
+        _zero(counters)
+        out = fn()
+        _add(totals, _count(counters))
+        res["wall_s"][key] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--model", PROFILE_MODEL, "--batch", str(PROFILE_SERVE_B),
+                  "--iters", str(PROFILE_SERVE_ITERS)] + dev
+        res["traffic"] = counted("traffic", lambda: ttm.main(
+            ["--model", PROFILE_MODEL, "--batch", str(PROFILE_SERVE_B)]))
+        res["traffic"].pop("rows")
+        serve = counted("serve_bf16", lambda: tps.main(
+            common + ["--trace", tmp]))
+        check_serve_profile(serve, on_card)
+        rep = counted("trace_report", lambda: ttr.main(
+            [tmp, "--iters", str(PROFILE_SERVE_ITERS), "--top", "100000"]))
+        check_trace_report(rep, serve["stages"][-1]["device_ms"], on_card)
+        res["serve_bf16"] = serve
+        res["trace_report"] = {**rep, "ops": rep["ops"][:15]}
+        res["serve_f32"] = counted("serve_f32", lambda: tps.main(
+            common + ["--dtype", "float32"]))
+        check_serve_profile(res["serve_f32"], on_card)
+        res["train"] = counted("train", lambda: ttp.main(
+            ["--model", PROFILE_MODEL, "--batch", str(PROFILE_TRAIN_B),
+             "--iters", str(PROFILE_STEP_ITERS), "--fused-bwd"] + dev))
+        check_train_profile(res["train"], n_convs, on_card)
+        aug = counted("augment", lambda: tpa.main(
+            ["--batch", str(PROFILE_AUG_B), "--iters",
+             str(PROFILE_STEP_ITERS), "--trace", str(Path(tmp) / "aug"),
+             "--top", "100000"] + dev))
+        check_augment_profile(aug, on_card)
+        res["augment"] = {**aug, "ops": aug["ops"][:15]}
+    ab = counted("eval_memory_ab", lambda: tem.run(PROFILE_AB_DETS,
+                                                   PROFILE_AB_IMAGES))
+    if any("error" in r for r in ab) or ab[0]["ap"] != ab[1]["ap"]:
+        raise AssertionError(f"evaluation-memory A/B: {ab}")
+    res["eval_memory_ab"] = ab
+    if on_card:
+        missing = [k for k in ("stem", "nms", "reduce_sums", "main_1x1",
+                               "shear_xy") if not totals[k]]
+        if missing:
+            raise AssertionError(f"phase 16 launched no {missing}")
+    res["launches"] = totals
+    res["wall_s"]["phase"] = time.perf_counter() - t_phase
+    log(f"phase 16 (profilers) wall: {res['wall_s']['phase']:.1f} s; "
+        f"card: {res['card']}")
+    lines.append({"profilers": res})
+    return totals
+
+
 def main() -> int:
     try:
         import torch
@@ -6098,6 +6320,8 @@ def main() -> int:
     mark("14 meshes")
     harness_launches = run_harnesses(lines)
     mark("15 harnesses")
+    profile_launches = run_profilers(len(shapes), lines)
+    mark("16 profilers")
     for entry in kernels:
         key = {"stem_conv_bn_act": "stem", "nms_keep": "nms"}.get(
             entry["name"], entry["name"])
@@ -6106,6 +6330,7 @@ def main() -> int:
         entry["launches_parallel"] = parallel_launches[key]
         entry["launches_mesh"] = mesh_launches[key]
         entry["launches_harness"] = harness_launches[key]
+        entry["launches_profile"] = profile_launches[key]
     for line in lines:
         log(json.dumps(line))
     log(json.dumps({"phase_wall_s": walls,
