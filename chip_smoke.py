@@ -245,12 +245,37 @@ Phases, in order; any failure exits non-zero and prints no result:
    equal; every one of K1-K5 launched in the phase; the phase's wall
    time.
 
+17. (run last) the host-against-device augmentation A/Bs
+   (`run_augment_abs`): (a) the distribution check of
+   `tests/test_torch_augment_equivalence.py` on the card: 384 samples of
+   the device engine at 128 px from a seeded generator on the card (bf16
+   products, K5 once a batch of 64) against 384 of the host pipeline
+   (MosaicDetection + TrainTransform), held to JAX's bounds (|z| <
+   `AUGEQ_Z` on box count, width, height, area, pad fraction and pixel
+   mean; softening of pixel std and gradient energy within
+   `AUGEQ_SOFTENING`), the same draws through the CPU's plain path
+   (card against CPU z printed), and the MixUp gate rate 1.0 on a set
+   where every image has labels; (b) `torch_augment_ab.main` with both
+   arms at 50 epochs (the learnable set, 96 px, B 4): each arm's
+   run-average loss below `AB_LOSS_MAX` and at least one confident
+   correct detection, the arms' relative loss gap below `AB_LOSS_GAP`;
+   (c) `torch_augment_outcome_ab.main` at `OUTCOME_EPOCHS` (50, cut from
+   the script's 150 for time): each arm's loss over its last 10
+   iterations before the L1 loss joins below that over its first 10,
+   the APs and their deltas printed (at 150 epochs neither package
+   detects anything on the noise images: AP 0). The launch counters are read around each
+   arm, each iteration (K5 once a device-augmented step and never
+   otherwise, `shear_x`, K3 and K4 never), each detection and
+   evaluation (K2 at least once); each arm's img/s; the phase's wall
+   time. (b) and (c) train under PyTorch's default TF32 settings, as the
+   scripts run alone (`torch_default_tf32`), and deterministically.
+
 Then JSON lines with the serve, evaluation, training, augmentation,
-int8, trainer, CLI, parallel, mesh, harness and profiler results and the
-kernels (each with its launches on every main path: `launches`,
+int8, trainer, CLI, parallel, mesh, harness, profiler and A/B results
+and the kernels (each with its launches on every main path: `launches`,
 `launches_eval`, `launches_trainer`, `launches_cli`,
 `launches_parallel`, `launches_mesh`, `launches_harness`,
-`launches_profile`), each phase's
+`launches_profile`, `launches_ab`), each phase's
 wall time, the `nvidia-smi` name and power limit, and as the last line
 `{"ok": true, "device": {...}}`.
 
@@ -268,6 +293,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -6247,6 +6273,487 @@ def run_profilers(n_convs, lines):
     return totals
 
 
+# ------------------------------------- phase 17: the augmentation A/Bs
+
+# The distribution check of the device augmentation against the host
+# pipeline, at the JAX package's sizes (`tests/test_augment_equivalence.py`)
+AUGEQ_S = 128          # output size
+AUGEQ_IMAGES = 16      # base images
+AUGEQ_SAMPLES = 384    # samples a pipeline
+AUGEQ_BATCH = 64       # device samples a batch
+AUGEQ_GATE_N = 128     # samples of the MixUp gate check
+AUGEQ_SEED = 7         # the device generator's seed (JAX's key 7)
+AUGEQ_HYPER = dict(degrees=10.0, translate=0.1, shear=2.0)
+AUGEQ_SCALES = (0.5, 1.5)
+# JAX's bounds: |z| below AUGEQ_Z on these metrics (at N 384, any shift
+# below ~0.3 of a sample's sigma) ...
+AUGEQ_Z = 4.0
+AUGEQ_SHARED = ("n_boxes", "box_w", "box_h", "box_area", "pad_frac",
+                "pix_mean")
+# ... and the multi-pass interpolation's softening, (host - device) /
+# host, within AUGEQ_SOFTENING on these
+AUGEQ_SOFT = ("pix_std", "grad_energy")
+AUGEQ_SOFTENING = (-0.02, 0.12)
+# torch_augment_ab's outcome bounds (JAX's `test_trainer_e2e.py`): the
+# run-average loss below this (init ~12.5), at least one confident correct
+# detection an arm, the arms' relative loss gap below AB_LOSS_GAP
+AB_LOSS_MAX = 10.5
+AB_LOSS_GAP = 0.2
+AB_EPOCHS = 50         # torch_augment_ab's default
+# torch_augment_outcome_ab here: 50 epochs, not the script's 150, for the
+# script's time limit (150 took ~170 s of the phase on an H100); at 150
+# neither package's arms make a detection above its test_conf on the
+# noise images (AP 0: JAX's script on the CPU, the port on the H100), so
+# the AP is recorded, not bounded
+OUTCOME_EPOCHS = 50
+
+
+class AugeqDataset:
+    """The distribution check's base set (JAX's `base_dataset` fixture):
+    smooth gradients with class-coloured rectangles at the label boxes,
+    so pixel statistics follow geometry and labels sit on content."""
+
+    def __init__(self, n=AUGEQ_IMAGES, s=AUGEQ_S, seed=0):
+        rng = np.random.default_rng(seed)
+        self.imgs, self.labs = [], []
+        for _ in range(n):
+            h = int(rng.integers(s // 2, s + 1))
+            w = int(rng.integers(s // 2, s + 1))
+            yy, xx = np.mgrid[0:h, 0:w]
+            img = np.stack([
+                xx / max(w - 1, 1) * 255,
+                yy / max(h - 1, 1) * 255,
+                (xx + yy) / max(h + w - 2, 1) * 255,
+            ], -1).astype(np.uint8)
+            k = int(rng.integers(1, 4))
+            lab = np.zeros((k, 5), np.float32)
+            for j in range(k):
+                bw = float(rng.uniform(16, w / 2))
+                bh = float(rng.uniform(16, h / 2))
+                x = float(rng.uniform(0, w - bw))
+                y = float(rng.uniform(0, h - bh))
+                cls = int(rng.integers(0, 3))
+                lab[j] = [x, y, x + bw, y + bh, cls]
+                img[int(y):int(y + bh), int(x):int(x + bw), cls] = 230
+            self.imgs.append(img)
+            self.labs.append(lab)
+
+    def __len__(self):
+        return len(self.imgs)
+
+    def pull_item(self, idx):
+        return (self.imgs[idx].copy(), self.labs[idx].copy(),
+                self.imgs[idx].shape[:2], idx)
+
+    def load_anno(self, idx):
+        return self.labs[idx]
+
+
+def augeq_host_samples(ds, n=AUGEQ_SAMPLES):
+    """n samples of the host pipeline (MosaicDetection + TrainTransform,
+    MixUp on), sample i from seed 1000 + i: (images, labels) numpy."""
+    from yolox_tpu_torch.data import MosaicDetection, TrainTransform
+
+    md = MosaicDetection(
+        ds, img_size=(AUGEQ_S, AUGEQ_S), mosaic=True,
+        preproc=TrainTransform(max_labels=120), mosaic_scale=AUGEQ_SCALES,
+        mixup_scale=(0.5, 1.5), enable_mixup=True, **AUGEQ_HYPER)
+    imgs, labs = [], []
+    for i in range(n):
+        img, lab, *_ = md[(True, i % len(ds), 1000 + i)]
+        imgs.append(np.asarray(img))
+        labs.append(np.asarray(lab))
+    return np.stack(imgs), np.stack(labs)
+
+
+def augeq_tiles(ds, start, batch):
+    """The raw tiles of device samples start .. start + batch - 1 (sample
+    j from seed 2000 + j, as JAX's check): (tiles, hw, labels) numpy."""
+    from yolox_tpu_torch.data import TileDataset
+
+    td = TileDataset(ds, tile_size=AUGEQ_S)
+    items = [td[(True, (start + b) % len(ds), 2000 + start + b)]
+             for b in range(batch)]
+    return (np.stack([t for t, _, _, _ in items]),
+            np.stack([h for _, _, h, _ in items]),
+            np.stack([lab for _, lab, _, _ in items]))
+
+
+def augeq_draws(generator, n=AUGEQ_SAMPLES, batch=AUGEQ_BATCH, **kw):
+    """The draws of n device samples, a batch at a time, from `generator`
+    (on its device), as `device_augment_batch` takes them."""
+    from yolox_tpu_torch.data import sample_augment_draws
+
+    return [sample_augment_draws(batch, generator, (AUGEQ_S, AUGEQ_S),
+                                 scales=AUGEQ_SCALES, mixup_scale=(0.5, 1.5),
+                                 **AUGEQ_HYPER, **kw)
+            for _ in range(0, n, batch)]
+
+
+def augeq_device_samples(ds, draws, device, n=AUGEQ_SAMPLES, **kw):
+    """The device engine's samples on `device` from `draws` (a list, one
+    entry a batch): `augment_with_draws` at the check's settings, MixUp
+    on, float32 images (the products and K5 in the device's own compute
+    dtype: bf16 on a card). Returns (images, labels) numpy."""
+    import torch
+
+    from yolox_tpu_torch.data import augment_with_draws
+
+    imgs, labs = [], []
+    for k, d in enumerate(draws):
+        batch = len(d["yc"])
+        tiles, hw, lab = (torch.from_numpy(a).to(device) for a in
+                          augeq_tiles(ds, k * batch, batch))
+        im, lb = augment_with_draws(
+            tiles, hw, lab, {key: v.to(device) for key, v in d.items()},
+            (AUGEQ_S, AUGEQ_S), max_labels=120,
+            degrees=AUGEQ_HYPER["degrees"], shear=AUGEQ_HYPER["shear"],
+            **{"enable_mixup": True, **kw})
+        imgs.append(im.float().cpu().numpy())
+        labs.append(lb.cpu().numpy())
+    return np.concatenate(imgs)[:n], np.concatenate(labs)[:n]
+
+
+def augeq_metrics(imgs, labs):
+    """Per-sample metrics (JAX's `_per_image_metrics`): pixel mean and
+    std, the pad fraction (within 0.75 of 114), gradient energy, and the
+    valid boxes' count and mean width, height and area."""
+    m = {}
+    m["pix_mean"] = imgs.mean((1, 2, 3))
+    m["pix_std"] = imgs.std((1, 2, 3))
+    m["pad_frac"] = (np.abs(imgs - 114.0) < 0.75).mean((1, 2, 3))
+    m["grad_energy"] = (np.abs(np.diff(imgs, axis=2)).mean((1, 2, 3))
+                        + np.abs(np.diff(imgs, axis=1)).mean((1, 2, 3)))
+    valid = labs[..., 3] * labs[..., 4] > 0
+    m["n_boxes"] = valid.sum(1).astype(np.float64)
+    wv = np.where(valid, labs[..., 3], np.nan)
+    hv = np.where(valid, labs[..., 4], np.nan)
+    with np.errstate(invalid="ignore"), warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # samples, no box
+        m["box_w"] = np.nanmean(wv, 1)
+        m["box_h"] = np.nanmean(hv, 1)
+        m["box_area"] = np.nanmean(wv * hv, 1)
+    return m
+
+
+def augeq_z(x, y):
+    """Two-sample z of the means over the finite entries."""
+    x = x[np.isfinite(x)]
+    y = y[np.isfinite(y)]
+    se = np.sqrt(x.var() / len(x) + y.var() / len(y))
+    return float((x.mean() - y.mean()) / se)
+
+
+def augeq_compare(hm, dm):
+    """{"z": every metric's z (first set minus second), "softening":
+    (first - second) / first of the means on AUGEQ_SOFT}."""
+    return {"z": {k: augeq_z(hm[k], dm[k]) for k in hm},
+            "softening": {k: float((hm[k].mean() - dm[k].mean())
+                                   / hm[k].mean()) for k in AUGEQ_SOFT}}
+
+
+def augeq_failures(cmp):
+    """The bounds `cmp` (host against device) leaves: |z| >= AUGEQ_Z on
+    AUGEQ_SHARED, softening outside AUGEQ_SOFTENING."""
+    lo, hi = AUGEQ_SOFTENING
+    bad = [f"{k}: z {cmp['z'][k]:.3f}" for k in AUGEQ_SHARED
+           if not abs(cmp["z"][k]) < AUGEQ_Z]
+    bad += [f"{k}: softening {cmp['softening'][k]:.4f}" for k in AUGEQ_SOFT
+            if not lo <= cmp["softening"][k] <= hi]
+    return bad
+
+
+def augeq_mixup_rate(ds, generator, device):
+    """The share of AUGEQ_GATE_N samples that MixUp changes (by more than
+    one level anywhere) on a set where every image has labels: the same
+    draws with MixUp on and off, flip and HSV off. The reference mixes
+    whenever the mosaic kept any label row (clipped ones too), so 1.0."""
+    import torch
+
+    from yolox_tpu_torch.data import augment_with_draws
+
+    (d,) = augeq_draws(generator, AUGEQ_GATE_N, AUGEQ_GATE_N,
+                       flip_prob=0.0, hsv_prob=0.0)
+    tiles, hw, lab = (torch.from_numpy(a).to(device)
+                      for a in augeq_tiles(ds, 0, AUGEQ_GATE_N))
+    im = {}
+    for mix in (True, False):
+        im[mix], _ = augment_with_draws(
+            tiles, hw, lab, d, (AUGEQ_S, AUGEQ_S), max_labels=120,
+            degrees=AUGEQ_HYPER["degrees"], shear=AUGEQ_HYPER["shear"],
+            enable_mixup=mix, hsv_prob=0.0)
+    mixed = (im[True].float() - im[False].float()).abs().amax((1, 2, 3)) > 1
+    return float(mixed.float().mean())
+
+
+def augment_ab_scripts():
+    """The augmentation A/Bs of `scripts/`: (torch_augment_ab,
+    torch_augment_outcome_ab)."""
+    scripts = str(REPO / "scripts")
+    sys.path.insert(0, scripts)
+    try:
+        import torch_augment_ab
+        import torch_augment_outcome_ab
+    finally:
+        sys.path.remove(scripts)
+    return torch_augment_ab, torch_augment_outcome_ab
+
+
+def augeq_on_card(counters):
+    """Phase 17 (a): the device engine's AUGEQ_SAMPLES samples on CARD
+    from a seeded generator there, against the host pipeline's, with
+    JAX's bounds; the same draws through the CPU's plain path, card
+    against CPU z printed; the MixUp gate rate on CARD. Returns (result,
+    launches)."""
+    import torch
+
+    ds = AugeqDataset()
+    t0 = time.perf_counter()
+    hm = augeq_metrics(*augeq_host_samples(ds))
+    host_s = time.perf_counter() - t0
+    gen = torch.Generator(device=CARD).manual_seed(AUGEQ_SEED)
+    draws = augeq_draws(gen)
+    _zero(counters)
+    t0 = time.perf_counter()
+    card = augeq_metrics(*augeq_device_samples(ds, draws, CARD))
+    card_s = time.perf_counter() - t0
+    gate = augeq_mixup_rate(
+        ds, torch.Generator(device=CARD).manual_seed(AUGEQ_SEED), CARD)
+    n = _count(counters)
+    cpu = augeq_metrics(*augeq_device_samples(ds, draws, "cpu"))
+    res = {"host_vs_card": augeq_compare(hm, card),
+           "host_vs_cpu": augeq_compare(hm, cpu),
+           "card_vs_cpu_z": augeq_compare(card, cpu)["z"],
+           "mixup_gate_rate": gate, "host_s": host_s, "card_s": card_s,
+           "launches": n}
+    log("phase 17 (a) distribution, host against device, "
+        f"{AUGEQ_SAMPLES} samples at {AUGEQ_S} px: "
+        + json.dumps({k: res[k] for k in ("host_vs_card", "host_vs_cpu",
+                                          "card_vs_cpu_z",
+                                          "mixup_gate_rate")}))
+    bad = augeq_failures(res["host_vs_card"])
+    if bad:
+        raise AssertionError(f"the card's device augmentation leaves the "
+                             f"host pipeline's distribution: {bad}")
+    if gate != 1.0:
+        raise AssertionError(f"MixUp gate rate {gate} on the card")
+    if torch.device(CARD).type == "cuda":
+        # one K5 a batch: the samples' and the gate check's two
+        want = len(draws) + 2
+        if n["shear_xy"] != want or n["shear_x"]:
+            raise AssertionError(f"distribution check launches {n}, want "
+                                 f"shear_xy {want}, shear_x 0")
+    return res, n
+
+
+@contextlib.contextmanager
+def iteration_launches(counters, records):
+    """Within the block, each `Trainer` iteration appends a dict to
+    `records`: device-augmented or not (`aug`), with the L1 loss or not
+    (`l1`), its loss and its launches. The counters count on the host at
+    each launch, so reading them needs no sync."""
+    from yolox_tpu_torch.core.trainer import Trainer
+
+    one_iter = Trainer.train_one_iter
+
+    def counted(self):
+        rec = {"aug": self._device_augment, "l1": self.use_l1}
+        before = {k: f.launches for k, f in counters.items()}
+        one_iter(self)
+        records.append({**rec, "loss": self.meter["total_loss"].latest,
+                        "launches": {k: f.launches - before[k]
+                                     for k, f in counters.items()}})
+
+    Trainer.train_one_iter = counted
+    try:
+        yield
+    finally:
+        Trainer.train_one_iter = one_iter
+
+
+def check_ab_iterations(name, records, aug_steps, on_card):
+    """K5 once an augmented step of the device arm, never otherwise;
+    `shear_x`, K3 and K4 never (`fused_conv_bwd` off)."""
+    got = sum(r["aug"] for r in records)
+    if got != aug_steps:
+        raise AssertionError(f"{name}: {got} augmented steps, want "
+                             f"{aug_steps}")
+    if not on_card:
+        return
+    for i, r in enumerate(records):
+        n = r["launches"]
+        if (n["shear_xy"] != int(r["aug"]) or n["shear_x"]
+                or n["reduce_sums"] or n["main_1x1"]):
+            raise AssertionError(f"{name}: iteration {i} (augmented "
+                                 f"{r['aug']}) launched {n}")
+
+
+def counted_arms(mod, run, inner, argv, counters):
+    """`mod.main(argv)` with the launch counters read around each call of
+    `mod.<run>` (an arm), around each of its `Trainer` iterations
+    (`iteration_launches`) and around each call of `mod.<inner>` (its
+    detection or evaluation). Returns (what main returns, one dict an arm:
+    `result`, `launches`, `records`, `inner`)."""
+    run_fn, inner_fn = getattr(mod, run), getattr(mod, inner)
+    arms = []
+
+    def counted_inner(*a, **kw):
+        before = _count(counters)
+        out = inner_fn(*a, **kw)
+        arms[-1]["inner"] = {k: v - before[k]
+                             for k, v in _count(counters).items()}
+        return out
+
+    def counted_run(*a, **kw):
+        arms.append({"records": []})
+        _zero(counters)
+        with iteration_launches(counters, arms[-1]["records"]):
+            r = run_fn(*a, **kw)
+        arms[-1]["launches"] = _count(counters)
+        arms[-1]["result"] = r
+        return r
+
+    setattr(mod, run, counted_run)
+    setattr(mod, inner, counted_inner)
+    try:
+        out = mod.main(argv)
+    finally:
+        setattr(mod, run, run_fn)
+        setattr(mod, inner, inner_fn)
+    return out, arms
+
+
+def aug_steps(max_epoch, no_aug_epochs, iters):
+    """Device-augmented steps of a run from epoch 0: the mosaic closes at
+    epoch index max_epoch - no_aug_epochs - 1."""
+    return max(max_epoch - no_aug_epochs - 1, 0) * iters
+
+
+@contextlib.contextmanager
+def torch_default_tf32():
+    """PyTorch's default TF32 settings within the block (cuDNN's convs
+    may take TF32, matmuls not), the caller's after: the A/B scripts
+    train as a user's call does, whatever `main` set for the float32
+    comparisons of other phases. Their training is deterministic, so
+    under these flags a seed gives the script's own numbers."""
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def run_augment_abs(lines, ab_epochs=AB_EPOCHS,
+                    outcome_epochs=OUTCOME_EPOCHS):
+    """Phase 17: the host-against-device augmentation A/Bs on CARD: the
+    distribution check (a), `torch_augment_ab` (b) and
+    `torch_augment_outcome_ab` (c), each through its `main()`, with the
+    launch counters read around every arm. Returns each kernel's launches
+    over the phase."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(CARD).type == "cuda"
+    taa, tao = augment_ab_scripts()
+    counters = _launch_counters()
+    totals = dict.fromkeys(counters, 0)
+    res = {"card": nvidia_smi() if on_card else None, "wall_s": {}}
+
+    t0 = time.perf_counter()
+    res["distribution"], n = augeq_on_card(counters)
+    _add(totals, n)
+    res["wall_s"]["distribution"] = time.perf_counter() - t0
+
+    saved_tmp = tempfile.tempdir
+    with tempfile.TemporaryDirectory() as tmp, torch_default_tf32():
+        tempfile.tempdir = tmp  # the scripts' own temporary directories
+        try:
+            dev = ["--device", "cuda" if on_card else "cpu"]
+            t0 = time.perf_counter()
+            results, arms = counted_arms(
+                taa, "run_arm", "detect",
+                ["--which", "both", "--epochs", str(ab_epochs)] + dev,
+                counters)
+            res["wall_s"]["augment_ab"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            report, oarms = counted_arms(
+                tao, "run_one", "evaluate_checkpoint",
+                ["--epochs", str(outcome_epochs), "--out",
+                 str(Path(tmp) / "out")] + dev, counters)
+            res["wall_s"]["outcome_ab"] = time.perf_counter() - t0
+        finally:
+            tempfile.tempdir = saved_tmp
+
+    if [arm["result"] for arm in arms] != results:
+        raise AssertionError("torch_augment_ab: arms and results differ")
+    no_aug = max(2, ab_epochs // 5)
+    res["augment_ab"] = []
+    for arm in arms:
+        r, n = arm["result"], arm["launches"]
+        _add(totals, n)
+        check_ab_iterations(
+            f"augment_ab {'dev' if r['dev'] else 'host'}", arm["records"],
+            aug_steps(ab_epochs, no_aug, 4) if r["dev"] else 0, on_card)
+        images = taa.images_trained(ab_epochs)
+        res["augment_ab"].append({
+            **r, "img_s": images / max(r["wall_s"], 1e-9), "images": images,
+            "launches": n, "detect_launches": arm["inner"],
+            "aug_steps": sum(it["aug"] for it in arm["records"])})
+        if on_card and not arm["inner"]["nms"] >= 1:
+            raise AssertionError(f"augment_ab: no K2 launch in {r}")
+        if not (r["run_avg_loss"] < AB_LOSS_MAX
+                and r["confident_correct"] >= 1):
+            raise AssertionError(f"augment_ab arm outside JAX's bounds: {r}")
+    host, dev = (arm["result"] for arm in arms)
+    gap = abs(host["run_avg_loss"] - dev["run_avg_loss"]) \
+        / host["run_avg_loss"]
+    res["loss_gap"] = gap
+    if not gap < AB_LOSS_GAP:
+        raise AssertionError(f"augment_ab relative loss gap {gap:.4f}")
+
+    no_aug = max(outcome_epochs // 10, 1)
+    res["outcome_ab"] = {**report, "arms": []}
+    for arm in oarms:
+        r, n = arm["result"], arm["launches"]
+        _add(totals, n)
+        check_ab_iterations(
+            f"outcome_ab {r['device_augment']}", arm["records"],
+            aug_steps(outcome_epochs, no_aug, 3) if r["device_augment"]
+            else 0, on_card)
+        # trained: before the L1 loss joins, the mean loss of the last
+        # 10 iterations below that of the first 10
+        losses = [it["loss"] for it in arm["records"] if not it["l1"]]
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        res["outcome_ab"]["arms"].append({
+            "device_augment": r["device_augment"], "launches": n,
+            "evaluation_launches": arm["inner"],
+            "first_10_loss": first, "last_10_loss_before_l1": last,
+            "aug_steps": sum(it["aug"] for it in arm["records"])})
+        if on_card and not arm["inner"]["nms"] >= 1:
+            raise AssertionError(f"outcome_ab: no K2 launch in {r}")
+        if not (np.isfinite(r["final_loss"]) and last < first):
+            raise AssertionError(f"outcome_ab arm did not train: loss "
+                                 f"{first} -> {last}, {r}")
+    if on_card:
+        missing = [k for k in ("nms", "shear_xy") if not totals[k]]
+        if missing:
+            raise AssertionError(f"phase 17 launched no {missing}")
+    res["launches"] = totals
+    res["wall_s"]["phase"] = time.perf_counter() - t_phase
+    log(f"phase 17 (augmentation A/Bs) wall: {res['wall_s']['phase']:.1f} "
+        f"s; card: {res['card']}")
+    lines.append({"augment_abs": res})
+    return totals
+
+
 def main() -> int:
     try:
         import torch
@@ -6322,6 +6829,8 @@ def main() -> int:
     mark("15 harnesses")
     profile_launches = run_profilers(len(shapes), lines)
     mark("16 profilers")
+    ab_launches = run_augment_abs(lines)
+    mark("17 augmentation A/Bs")
     for entry in kernels:
         key = {"stem_conv_bn_act": "stem", "nms_keep": "nms"}.get(
             entry["name"], entry["name"])
@@ -6331,6 +6840,7 @@ def main() -> int:
         entry["launches_mesh"] = mesh_launches[key]
         entry["launches_harness"] = harness_launches[key]
         entry["launches_profile"] = profile_launches[key]
+        entry["launches_ab"] = ab_launches[key]
     for line in lines:
         log(json.dumps(line))
     log(json.dumps({"phase_wall_s": walls,

@@ -16,7 +16,11 @@ clipping and filtering. Sampling is split from the transform:
 `torch.Generator`, `augment_with_draws` is deterministic given them, and
 `device_augment_batch` runs both. A generator gives other numbers than a
 JAX key, so the two packages' streams are the same distribution, not the
-same samples; given the same draws, they compute the same batch.
+same samples; given the same draws, they compute the same batch. In
+distribution the engine is held to JAX's engine and to the host pipeline
+(`MosaicDetection` + `TrainTransform`) by
+`tests/test_torch_augment_equivalence.py`, and on a card by
+`chip_smoke.py` phase 17.
 
 Input per sample: 4 mosaic tiles and 1 MixUp partner tile, each
 pre-resized to fit (S, S) and zero-padded, their true (h, w), and padded
