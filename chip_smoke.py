@@ -82,13 +82,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    longer side is 640 (`phase_eval_model`: float32 against the CPU at
    `assert_dets_match` and `EVAL_F32_STAT_TOL`, bf16 at `EVAL_BF16_*`,
    the launch counters read around each card run, the COCO matching
-   path printed); evaluation images/s over the set repeated 10 times (640
+   path printed); evaluation images/s over the set repeated 5 times (320
    images) and device ms a batch at B 32 in float32 and bf16 with a
    breakdown by stage (`eval_times`).
 
 10. (run last) the trainer: `YoloxConfig.get_trainer(args).train()` on
    yolox-s at full width and depth, 640 px, B 16, bf16 (`fp16`),
-   `fused_conv_bwd`, 160 in-memory images of mixed shapes (1-10 boxes
+   `fused_conv_bwd`, 96 in-memory images of mixed shapes (1-10 boxes
    each), 32 evaluation images, `max_epoch` 2, `no_aug_epochs` 0 (the
    mosaic closes at epoch index max_epoch - no_aug_epochs - 1, so epoch 1
    runs Mosaic/MixUp and epoch 2 letterboxes with L1), warm-up 1 epoch,
@@ -136,7 +136,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    spread) saved to a `.pth`, on a COCO set of 16 images written with cv2
    whose boxes are the model's own detections: `eval` in float32 (AP50:95
    / AP50 equal to `config.eval` on the same module and set), bf16 and
-   int8 HBM, then the three timed at B 32 on the set 20 times over (320
+   int8 HBM, then the three timed at B 32 on the set 10 times over (160
    images; images/s of the evaluation call and its parts, the command's
    start-up apart, the loader alone with its batches in shared memory and
    pickled (each over the same 4 batches, start-up excluded);
@@ -169,7 +169,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    rank's step ms and the gradient all-reduce's ms; 3 augmented steps
    (bf16, K5) per rank, each rank's batch remade from its seed bit-equal
    and the ranks equal after each step; the two-rank evaluation of the
-   320-image CLI set at B 32 (16 a rank), its 12 statistics equal to one
+   160-image CLI set at B 32 (16 a rank), its 12 statistics equal to one
    process's at B 16 (the same batches), timed beside one process at B
    32; `Trainer` on the CLI set (B 8, bf16, `fused_conv_bwd`,
    `device_augment`, 2 epochs with evaluations: checkpoints by rank 0
@@ -230,10 +230,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    through its `main()` on yolox-s at full width and depth:
    `torch_serve_traffic_model` (B 32), `torch_profile_serve` at B 32 in
    bf16 with a trace and in float32 (TF32 off), `torch_trace_report` on
-   that trace, `torch_profile_train` at B 16 with `--fused-bwd` and 2
-   iterations, `torch_profile_augment` at B 16 with 2 iterations, then
-   `torch_eval_memory_ab` (its two child processes) at 512 000
-   detections on 500 images. Checked: every flop-bound and byte-bound
+   that trace, `torch_profile_train` at B 16 with `--fused-bwd` and 1
+   iteration, `torch_profile_augment` at B 16 with 1 iteration, then
+   `torch_eval_memory_ab` (its two child processes) at 256 000
+   detections on 250 images. Checked: every flop-bound and byte-bound
    share at most `PROFILE_ROOF_LIMIT` (above it a count is wrong); the
    serve stages' device ms rising within `PROFILE_RISE_TOL`; the trace
    report's device time an iteration within `PROFILE_TRACE_TOL` of the
@@ -259,7 +259,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    arms at 50 epochs (the learnable set, 96 px, B 4): each arm's
    run-average loss below `AB_LOSS_MAX` and at least one confident
    correct detection, the arms' relative loss gap below `AB_LOSS_GAP`;
-   (c) `torch_augment_outcome_ab.main` at `OUTCOME_EPOCHS` (50, cut from
+   (c) `torch_augment_outcome_ab.main` at `OUTCOME_EPOCHS` (12, cut from
    the script's 150 for time): each arm's loss over its last 10
    iterations before the L1 loss joins below that over its first 10,
    the APs and their deltas printed (at 150 epochs neither package
@@ -270,12 +270,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    time. (b) and (c) train under PyTorch's default TF32 settings, as the
    scripts run alone (`torch_default_tf32`), and deterministically.
 
+18. (run last) the model zoo (`run_zoo`): yolox-tiny (416 px), -m, -l
+   and -x (640 px) at full width and depth from seeded weights (scores
+   spread), each: `Yolox.__call__` at B 1 and 2 in float32 against the
+   CPU module with the same weights (`assert_detections_match`), bf16
+   against the card's float32 (`bf16_rows_match`), K1 and K2 once a
+   call; serve latency (B 1) and throughput at `bench.py`'s serve batch
+   (256 / 128 / 96 / 32) in float32 and bf16 (CUDA events, device ms,
+   peak memory); K1 at the model's stem width (24 / 48 / 64 / 80) against
+   its plain version at B 1 and the serve batch, uint8 to float32 and
+   bf16, with its times, bound and cuDNN yardstick; Q1 against its plain
+   version at every int8 conv shape (B 32), int8 HBM serving at B 32
+   from the bf16 module with the launches read around it (Q1 once per
+   BaseConv, K1 and K2 once), its first image against the CPU's int8
+   serve at phase 11's tolerances, Q1's times over the call; K3 and
+   K4 against their plain versions at every distinct 1x1 SiLU shape (B
+   8, float32 and bf16), the fused step against autograd at B 2 on one
+   held SimOTA assignment with the float64 autograd step as the arbiter
+   (`ZOO_F32_SLACK`), the bf16 `fused_bwd` step at `bench.py`'s train
+   batch (64 / 48 / 32 / 16; a batch that does not fit is recorded and
+   halved) with K3 / K4 once per 1x1 SiLU conv a step and finite losses,
+   step times, kernel ms and peak memory, K3 / K4 replayed over the step
+   beside their yardsticks; for tiny one device-augmented step (mosaic
+   scale 0.5-1.5, no MixUp; K5 once). One JSON line a model.
+
 Then JSON lines with the serve, evaluation, training, augmentation,
-int8, trainer, CLI, parallel, mesh, harness, profiler and A/B results
-and the kernels (each with its launches on every main path: `launches`,
-`launches_eval`, `launches_trainer`, `launches_cli`,
+int8, trainer, CLI, parallel, mesh, harness, profiler, A/B and zoo
+results and the kernels (each with its launches on every main path:
+`launches`, `launches_eval`, `launches_trainer`, `launches_cli`,
 `launches_parallel`, `launches_mesh`, `launches_harness`,
-`launches_profile`, `launches_ab`), each phase's
+`launches_profile`, `launches_ab`, `launches_zoo`), each phase's
 wall time, the `nvidia-smi` name and power limit, and as the last line
 `{"ok": true, "device": {...}}`.
 
@@ -982,14 +1006,14 @@ def phase_serve(cfg, rng):
     return launches, gpu_mod, thr[2]
 
 
-def stem_times(rng, wb, scale, bias):
-    """K1 at B 1 and 32, 640 px, uint8 in, float32 and bf16 out (bf16 out
-    with bf16-exact weights, as a bf16 model passes them): ms from CUDA
-    events (`cuda_ms`), device ms alone (`queued_ms`), plain ms, bound,
-    and the cuDNN yardstick (F.conv2d + F.batch_norm + F.silu in the
-    output's dtype on an NCHW copy of the image in that dtype, made
+def stem_times(rng, wb, scale, bias, size=640, batches=(1, 32)):
+    """K1 at each of `batches`, `size` px, uint8 in, float32 and bf16 out
+    (bf16 out with bf16-exact weights, as a bf16 model passes them): ms
+    from CUDA events (`cuda_ms`), device ms alone (`queued_ms`), plain ms,
+    bound, and the cuDNN yardstick (F.conv2d + F.batch_norm + F.silu in
+    the output's dtype on an NCHW copy of the image in that dtype, made
     before the timing; timed only) by both clocks. Keys "b1", "b32",
-    "b1_bf16", "b32_bf16"."""
+    "b1_bf16", "b32_bf16" (for the default batches)."""
     import torch
     import torch.nn.functional as F
 
@@ -1000,9 +1024,10 @@ def stem_times(rng, wb, scale, bias):
 
     c = wb.shape[0]
     out = {}
-    for b in (1, 32):
+    for b in batches:
         img = torch.from_numpy(
-            rng.integers(0, 256, (b, 640, 640, 3), dtype=np.uint8)).cuda()
+            rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)).to(
+                wb.device)
         iters = 50 if b == 1 else 10
         for dt in (torch.float32, torch.bfloat16):
             w = wb if dt == torch.float32 else wb.bfloat16().float()
@@ -1030,10 +1055,10 @@ def stem_times(rng, wb, scale, bias):
                  "library_device_ms": queued_ms(library,
                                                 20 if b == 1 else 5)}
             t["bound_ms"], t["bound_by"] = stem_bound(
-                b, 640, 640, c, 1, 4 if dt == torch.float32 else 2)
+                b, size, size, c, 1, 4 if dt == torch.float32 else 2)
             key = f"b{b}" + ("" if dt == torch.float32 else "_bf16")
             out[key] = t
-            log(f"K1 {key} uint8 -> {dt}: {t}")
+            log(f"K1 C{c} {key} uint8 -> {dt}: {t}")
             del x_lib
     return out
 
@@ -1251,14 +1276,18 @@ def phase_train(cfg, x, labels, n_kernel_convs):
     return total
 
 
-def _held_step(module, x, labels, assignment, fused, num_classes):
-    """One float32 step without EMA on a held assignment: (losses,
-    gradients as the first step's momentum buffers, parameter updates)."""
+def _held_step(module, x, labels, assignment, fused, num_classes,
+               compute_dtype=None):
+    """One float32 (or `compute_dtype`) step without EMA on a held
+    assignment: (losses, gradients as the first step's momentum buffers,
+    parameter updates)."""
     from yolox_tpu_torch.core import init_train_state, make_train_step
 
     state = init_train_state(module, use_ema=False)
     step = make_train_step(module, num_classes, use_ema=False,
-                           fused_bwd=fused)
+                           fused_bwd=fused,
+                           **({} if compute_dtype is None
+                              else {"compute_dtype": compute_dtype}))
     before = {n: p.detach().clone() for n, p in module.named_parameters()}
     state, losses = step(state, x, labels, 0.01, assignment=assignment)
     grads = {n: state.optimizer.state[p]["momentum_buffer"]
@@ -1393,6 +1422,43 @@ def phase_train_times(cfg, x, labels):
     return out
 
 
+def conv_bwd_calls(c):
+    """K3, K4 and their library yardsticks on one `conv_bwd_case` as
+    calls without arguments ("k3", "k4", "k3_lib", "k4_lib"), with the
+    coefficient table K4 takes ("coeff"). K3's yardstick,
+    `native_batch_norm_backward`, computes grad_input as well: more work
+    than K3. K4's, cuDNN's two products, takes g_z as given: less work
+    than K4."""
+    import torch
+
+    from yolox_tpu_torch.ops import conv_bwd as cb
+
+    def ch(v):
+        return v[None, :, None, None]
+
+    x, wt, z, g_y = c["x"], c["w"], c["z"], c["g_y"]
+    gamma, beta, mean, inv = c["gamma"], c["beta"], c["mean"], c["inv"]
+    n = z.shape[0] * z.shape[2] * z.shape[3]
+    s, coeff = cb.reduce_sums(z, g_y, gamma, beta, mean, inv, coeff=True)
+    zh = (z.float() - ch(mean)) * ch(inv)
+    ga = g_y.float() * cb.act_grad("silu", zh * ch(gamma) + ch(beta))
+    g_z = (ch(gamma * inv) * (ga - ch(s[0] / n) - zh * ch(s[1] / n))
+           ).to(x.dtype)
+    ga = ga.to(x.dtype)
+    w4 = wt[:, :, None, None]
+    del zh
+    return {
+        "coeff": coeff,
+        "k3": lambda: cb.reduce_sums(z, g_y, gamma, beta, mean, inv,
+                                     coeff=True),
+        "k4": lambda: cb.main_1x1(x, z, g_y, wt, coeff),
+        "k3_lib": lambda: torch.ops.aten.native_batch_norm_backward(
+            ga, z, gamma, None, None, mean, inv, True, 1e-3,
+            [True, True, True]),
+        "k4_lib": lambda: (torch.nn.grad.conv2d_input(x.shape, w4, g_z),
+                           torch.nn.grad.conv2d_weight(x, w4.shape, g_z))}
+
+
 def conv_bwd_times(shapes):
     """K3 and K4 at every shape (B 16): ms per launch from CUDA events
     around 20 back-to-back calls (host or device, whichever is slower), the
@@ -1408,9 +1474,6 @@ def conv_bwd_times(shapes):
 
     from yolox_tpu_torch.ops import conv_bwd as cb
 
-    def ch(v):
-        return v[None, :, None, None]
-
     freq = collections.Counter(shapes).most_common(1)[0][0]
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1421,38 +1484,12 @@ def conv_bwd_times(shapes):
             c = conv_bwd_case(200 + i, TRAIN_B, ci, co, h, w, dtype, "cuda")
             x, wt, z, g_y = c["x"], c["w"], c["z"], c["g_y"]
             gamma, beta, mean, inv = c["gamma"], c["beta"], c["mean"], c["inv"]
-            n = TRAIN_B * h * w
-            s, coeff = cb.reduce_sums(z, g_y, gamma, beta, mean, inv,
-                                      coeff=True)
-            zh = (z.float() - ch(mean)) * ch(inv)
-            ga = g_y.float() * cb.act_grad("silu", zh * ch(gamma) + ch(beta))
-            g_z = (ch(gamma * inv) * (ga - ch(s[0] / n) - zh * ch(s[1] / n))
-                   ).to(dtype)
-            ga = ga.to(dtype)
-            w4 = wt[:, :, None, None]
-            del zh
-
-            def k3(z=z, g_y=g_y, gamma=gamma, beta=beta, mean=mean, inv=inv):
-                return cb.reduce_sums(z, g_y, gamma, beta, mean, inv,
-                                      coeff=True)
-
-            def k4(x=x, z=z, g_y=g_y, wt=wt, coeff=coeff):
-                return cb.main_1x1(x, z, g_y, wt, coeff)
-
-            # K3's yardstick computes grad_input as well: more work than
-            # K3. K4's takes g_z as given: less work than K4.
-            def lib3(ga=ga, z=z, gamma=gamma, mean=mean, inv=inv):
-                return torch.ops.aten.native_batch_norm_backward(
-                    ga, z, gamma, None, None, mean, inv, True, 1e-3,
-                    [True, True, True])
-
-            def lib4(x=x, w4=w4, g_z=g_z):
-                return (torch.nn.grad.conv2d_input(x.shape, w4, g_z),
-                        torch.nn.grad.conv2d_weight(x, w4.shape, g_z))
-
-            for k, f in (("k3", k3), ("k4", k4), ("k3_lib", lib3),
-                         ("k4_lib", lib4)):
-                calls[k].append(f)
+            fns = conv_bwd_calls(c)
+            coeff = fns["coeff"]
+            k3, k4, lib3, lib4 = (fns[k] for k in ("k3", "k4", "k3_lib",
+                                                   "k4_lib"))
+            for k in calls:
+                calls[k].append(fns[k])
             # the small shapes are host-bound: 20 calls in a row average
             # out the host's jitter, the same for all three
             iters = 20
@@ -1478,7 +1515,7 @@ def conv_bwd_times(shapes):
                 r[k]["bound_ms"] = max(t_b, t_o)
                 r[k]["bound_by"] = "bytes" if t_b >= t_o else "operations"
             rows.append(r)
-            del ga, g_z
+            del fns
         name = str(dtype).split(".")[-1]
         out[name] = {}
         for k in ("k3", "k4"):
@@ -2014,7 +2051,7 @@ def shear_times(rng):
 CARD = "cuda"       # the evaluation phase's device
 EVAL_N = 64         # synthetic evaluation images, longer side 640
 EVAL_B = 32         # evaluation batch
-EVAL_WINDOW = 10    # the timed evaluation: the set 10 times, 640 images
+EVAL_WINDOW = 5     # the timed evaluation: the set 5 times, 320 images
 # image shapes (h, w) the set cycles through: longer side 640, so the
 # letterbox ratio is 1 and no resize (no cv2, no Pillow) is needed
 EVAL_SHAPES = ((640, 640), (480, 640), (640, 480), (512, 640), (640, 427),
@@ -2598,7 +2635,7 @@ def run_augment(cfg, rng, n_kernel_convs, lines):
 
 # ------------------------------------------------------- the trainer (10)
 
-TRAINER_N = 160        # training images, in memory
+TRAINER_N = 96         # training images, in memory
 TRAINER_EVAL_N = 32    # evaluation images, longer side 640
 TRAINER_B = 16
 TRAINER_CHECK_N = 8    # best_ckpt.pth: card against CPU on this many
@@ -3444,9 +3481,10 @@ def _only(counters, **launches):
 
 def int8_card_vs_cpu(name, gpu, cpu, table, modes, frames, n_q1, n_q2,
                      threshold=None):
-    """One model in each int8 mode: raw outputs at B 1 and INT8_B, card
-    against CPU; `Yolox.__call__` on the card (its `int8_qtab` /
-    `int8_hbm_qtab` set) for 1 and INT8_B frames with the launch counters
+    """One model in each int8 mode: raw outputs at B 1 and on all
+    `frames`, card against CPU; `Yolox.__call__` on the card (its
+    `int8_qtab` / `int8_hbm_qtab` set) for 1 frame and all of `frames`
+    with the launch counters
     read around it, against the CPU's detections, at `threshold` (default:
     in a gap of the CPU's scores). Returns {mode: (rms, max |d|,
     launches)}."""
@@ -3457,7 +3495,7 @@ def int8_card_vs_cpu(name, gpu, cpu, table, modes, frames, n_q1, n_q2,
     out = {}
     counters = _launch_counters()
     bf16 = gpu.dtype == torch.bfloat16
-    reqs = [frames[:1], frames[:INT8_B]]
+    reqs = [frames[:1], frames]
     for mode in modes:
         attr = "int8_qtab" if mode == "ladder" else "int8_hbm_qtab"
         worst, scores = (0.0, 0.0), []
@@ -3518,7 +3556,8 @@ def int8_card_vs_cpu(name, gpu, cpu, table, modes, frames, n_q1, n_q2,
         if n_dets < INT8_MIN_DETS or flips > INT8_LABEL_FLIPS * n_dets:
             raise AssertionError(f"{name} int8 {mode}: {n_dets} detections "
                                  f"paired, {flips} labels differ")
-        log(f"{name} int8 {mode}: Yolox.__call__ (1 and {INT8_B} frames) "
+        log(f"{name} int8 {mode}: Yolox.__call__ (1 and {len(frames)} "
+            "frames) "
             f"launches {n}; {n_dets} detections at {thr:.4f} match the CPU"
             + ("" if exact else f" ({unpaired} within {INT8_DET_SCORE_TOL} "
                f"of the threshold unpaired, labels differ on {flips}, box "
@@ -3837,7 +3876,7 @@ def int8_times(v3_mod, s_bf16, nano_mod, s_table, nano_table, threshold):
                           {"int8_qtab": s_table}),
                          ("yolox_s_int8_hbm_bf16", s_bf16,
                           {"int8_hbm_qtab": s_table})):
-        for b, reps in ((1, 30), (INT8_TIME_B, 6)):
+        for b, reps in ((1, 15), (INT8_TIME_B, 4)):
             t, top = serve_time(mod, b, reps, threshold, **kw)
             name = f"{key}_b{b}"
             q1 = sum(v for k, v in top if "q1_kernel" in k)
@@ -3928,14 +3967,14 @@ def run_int8(cfg, rng, lines):
 
 CLI_N = 16           # images of the synthetic COCO set (train and val)
 CLI_B = 8            # eval / train batch
-# the timed evaluation: the val set CLI_TIME_SETS times over (320 images,
+# the timed evaluation: the val set CLI_TIME_SETS times over (160 images,
 # links to the same files) at B 32, as phase 9, so that the evaluation
 # and not the command's start-up sets the images/s
-CLI_TIME_SETS = 20
+CLI_TIME_SETS = 10
 CLI_TIME_N = CLI_N * CLI_TIME_SETS
 CLI_TIME_B = 32
 CLI_VIDEO = 6        # frames of the MJPG clip, 1280 x 720
-CLI_TIME_REPS = 20   # timed calls of an exported program and of eager serve
+CLI_TIME_REPS = 10   # timed calls of an exported program and of eager serve
 CLI_OP_CALLS = 500   # calls timed for the operators' host cost
 CLI_CONF = 0.3       # demo / export thresholds (spread scores: ~0-0.6)
 CLI_CFG = """
@@ -6075,11 +6114,14 @@ def run_harnesses(lines):
 
 PROFILE_MODEL = "s"
 PROFILE_SERVE_B = 32
+# 2 serve iterations left the trace report 16% under the stage's device
+# ms on an H100 80GB HBM3 at 700 W (limit 15%)
 PROFILE_SERVE_ITERS = 4
 PROFILE_TRAIN_B = 16
 PROFILE_AUG_B = 16
-PROFILE_STEP_ITERS = 2
-PROFILE_AB_DETS, PROFILE_AB_IMAGES = 512_000, 500
+# 2 until phase 18 needed the time (~12 s on an H100 80GB HBM3, 700 W)
+PROFILE_STEP_ITERS = 1
+PROFILE_AB_DETS, PROFILE_AB_IMAGES = 256_000, 250
 # a roofline share above this means a wrong count, not a fast kernel
 PROFILE_ROOF_LIMIT = 1.05
 # each cumulative serve stage's device ms is at least the one before it,
@@ -6300,12 +6342,14 @@ AUGEQ_SOFTENING = (-0.02, 0.12)
 AB_LOSS_MAX = 10.5
 AB_LOSS_GAP = 0.2
 AB_EPOCHS = 50         # torch_augment_ab's default
-# torch_augment_outcome_ab here: 50 epochs, not the script's 150, for the
-# script's time limit (150 took ~170 s of the phase on an H100); at 150
-# neither package's arms make a detection above its test_conf on the
-# noise images (AP 0: JAX's script on the CPU, the port on the H100), so
-# the AP is recorded, not bounded
-OUTCOME_EPOCHS = 50
+# torch_augment_outcome_ab here: 12 epochs, not the script's 150, for the
+# script's time limit (on an H100 80GB HBM3 at 700 W 150 took ~170 s of
+# the phase, 50 ~60 s, 25 ~45 s, which phase 18 needed; at 25 the pre-L1
+# loss fell 10.68 -> 10.51 host, 10.77 -> 10.44 device); at 150 neither
+# package's arms make a detection above its test_conf on the noise images
+# (AP 0: JAX's script on the CPU, the port on the H100), so the AP is
+# recorded, not bounded
+OUTCOME_EPOCHS = 12
 
 
 class AugeqDataset:
@@ -6754,6 +6798,603 @@ def run_augment_abs(lines, ab_epochs=AB_EPOCHS,
     return totals
 
 
+# ----------------------------------------------------- the model zoo (18)
+
+# yolox-tiny, -m, -l and -x, the JAX package's other YOLOX models, at full
+# width and depth from seeded weights: (config, weight seed, image size,
+# serve batch, train batch). The sizes are the configs' test sizes, the
+# batches `bench.py`'s SERVE_BATCH / TRAIN_BATCH (bench.py:50-53).
+ZOO_MODELS = (("yolox_tiny", 4401, 416, 256, 64),
+              ("yolox_m", 4402, 640, 128, 48),
+              ("yolox_l", 4403, 640, 96, 32),
+              ("yolox_x", 4404, 640, 32, 16))
+ZOO_CHECK_B = (1, 2)     # `Yolox.__call__` batches held to the CPU
+ZOO_INT8_B = 32          # int8 HBM serving from the bf16 module
+ZOO_PARITY_B = 2         # the fused step against autograd, SimOTA held
+ZOO_KERNEL_B = 8         # K3 / K4 against their plain versions
+ZOO_AUG_B = 8            # tiny's device-augmented step
+ZOO_STEPS = 3            # timed bf16 training steps after one warm-up
+ZOO_LATENCY_REPS = 5     # timed b1 serve calls
+ZOO_BATCH_REPS = 2       # timed serve-batch calls
+# yolox-tiny's augmentation (`YoloxTiny`: mosaic scale 0.5-1.5, no MixUp)
+ZOO_AUGMENT = {"scales": (0.5, 1.5), "enable_mixup": False}
+# bf16 serving against the card's float32 serving (phase 9's bf16
+# tolerances): a row matches one of the same class at IoU >= 0.9 and score
+# within 10%; rows scoring within ZOO_BF16_NEAR (relative) of the
+# threshold may go unpaired, since a 10% score move takes them across it
+ZOO_BF16_NEAR = 0.1
+# the fused step against autograd (`zoo_train`): float32 rounding grows
+# through these deeper models' train-mode BN layers past phase 7's
+# TRAIN_TOL (yolox-x at 128 px, B 2, on the CPU: fused and autograd float32
+# gradients at 3.4 and 4.2 of it from the float64 step, which the fused
+# float64 step meets at 1.4e-5), so the float64 autograd step is the
+# arbiter: the fused float32 gradients (losses) within TRAIN_TOL
+# (TRAIN_LOSS_RTOL) of it, or no further from it than ZOO_F32_SLACK times
+# autograd's float32 gradients (losses)
+ZOO_F32_SLACK = 2.0
+# K3 and K4 in the profile of a training step (the kernels of
+# `csrc/conv_bwd.cu`; PyTorch's reductions are `at::native::reduce_kernel`)
+K4_KERNELS = ("grad_z_kernel", "products_bf16", "dgrad_f32", "wgrad_f32",
+              "sum_splits")
+
+
+def _check_launches(what, got, want):
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, want {want}")
+    log(f"{what}: launches {got}")
+
+
+def bf16_rows_match(got, want, thr):
+    """Detections of two runs, per image rows (box, score, 1, label), at
+    phase 9's bf16 tolerances both ways (`bf16_match_fraction`), rows
+    scoring within ZOO_BF16_NEAR of the threshold `thr` left out. Returns
+    (share of `want`'s rows matched, share of `got`'s, rows compared)."""
+    lim = thr * (1 + ZOO_BF16_NEAR)
+
+    def firm(rows):
+        return {i: r[r[:, 4] >= lim] for i, r in enumerate(rows)}
+
+    g, w = firm(got), firm(want)
+    return (bf16_match_fraction(got=dict(enumerate(got)), want=w),
+            bf16_match_fraction(got=dict(enumerate(want)), want=g),
+            sum(map(len, w.values())) + sum(map(len, g.values())))
+
+
+def zoo_serve(cfg, init, size, rng, counters, total):
+    """`Yolox.__call__` on uint8 frames at each of ZOO_CHECK_B on CARD in
+    float32 against the CPU module with the same weights (the seeded
+    `init`, scores spread; threshold in a wide gap of the scores,
+    `assert_detections_match`), the bf16 module's detections against the
+    card's float32 ones (`bf16_rows_match`); the launch counters read
+    around the card's calls (K1 and K2 once a call). Returns (result,
+    card float32 module, card bf16 module, threshold)."""
+    import copy
+
+    import torch
+
+    from yolox_tpu_torch import Yolox, YoloxProcessor
+
+    frames = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+              for _ in range(max(ZOO_CHECK_B))]
+    # the spread and the threshold from the card's float32 forward: the
+    # CPU's scores differ by ~1e-6 relative, far inside a 1e-3 gap
+    gpu_mod = spread_scores(copy.deepcopy(init).to(CARD), np.stack(frames))
+    cpu_mod = copy.deepcopy(gpu_mod).to("cpu")
+    gpu, cpu = (Yolox(m, YoloxProcessor(cfg)) for m in (gpu_mod, cpu_mod))
+    thr, gap = mesh_threshold(anchor_scores(
+        gpu_mod, gpu.processor(frames, dtype=np.uint8)))
+    if gap < 1e-3:
+        raise AssertionError(f"no score gap wide enough ({gap:.3g})")
+
+    _zero(counters)
+    got = {b: gpu(frames[:b], threshold=thr) for b in ZOO_CHECK_B}
+    n = _count(counters)
+    _check_launches(f"{cfg.name} float32 serve at B {ZOO_CHECK_B}", n,
+                    _only(counters, stem=len(ZOO_CHECK_B),
+                          nms=len(ZOO_CHECK_B)))
+    _add(total, n)
+    t0 = time.perf_counter()
+    want = cpu(frames, threshold=thr)
+    cpu_s = time.perf_counter() - t0
+    for b, dets in got.items():
+        assert_detections_match(dets, want[:b])
+    n_dets = sum(len(d["labels"]) for d in want)
+    if n_dets < INT8_MIN_DETS:
+        raise AssertionError(f"{n_dets} detections prove little")
+
+    bf_mod = copy.deepcopy(cpu_mod).cast_params(torch.bfloat16).to(CARD)
+    del cpu_mod, cpu
+    _zero(counters)
+    bdets = Yolox(bf_mod, YoloxProcessor(cfg))(frames, threshold=thr)
+    n = _count(counters)
+    _check_launches(f"{cfg.name} bf16 serve", n,
+                    _only(counters, stem=1, nms=1))
+    _add(total, n)
+    f32_rows = detections_as_rows(got[max(ZOO_CHECK_B)])
+    frac = bf16_rows_match(detections_as_rows(bdets), f32_rows, thr)
+    n_bf = sum(len(d["labels"]) for d in bdets)
+    log(f"{cfg.name}: float32 serve on the card matches the CPU ({n_dets}"
+        f" detections at {thr:.4f}, gap {gap:.3g}; the CPU's call {cpu_s:.1f}"
+        f" s); bf16 {n_bf} detections, {frac[0]:.4f} of float32's and "
+        f"{frac[1]:.4f} of its own matched ({frac[2]} rows)")
+    if min(frac[:2]) < EVAL_BF16_MATCH:
+        raise AssertionError(f"{cfg.name}: bf16 serve against float32: "
+                             f"{frac}")
+    return ({"threshold": thr, "gap": gap, "detections": n_dets,
+             "bf16_detections": n_bf, "bf16_match": list(frac[:2]),
+             "cpu_call_s": cpu_s}, gpu_mod, bf_mod, thr)
+
+
+def zoo_serve_times(mods, size, serve_b, thr):
+    """b1 latency and serve-batch throughput of each module of `mods`
+    ({key: module}): a host uint8 batch in, detections copied to the host,
+    CUDA events per call (median after 2 warm-up calls); the device ms of
+    the calls queued on a batch already on the card (`queued_ms`); peak
+    memory of the batch's calls."""
+    import torch
+
+    out = {}
+    for key, mod in mods.items():
+        for b, reps in sorted({1: ZOO_LATENCY_REPS,
+                               serve_b: ZOO_BATCH_REPS}.items()):
+            x = np.random.default_rng(b).integers(0, 256, (b, size, size, 3),
+                                                  dtype=np.uint8)
+            xd = torch.from_numpy(x).to(CARD)
+
+            def call(x=x):
+                dets, valid = mod.serve(x, conf_thre=thr, max_det=1024)
+                dets.cpu(), valid.cpu()
+
+            torch.cuda.reset_peak_memory_stats()
+            samples = _event_ms(call, reps)
+            med = float(np.median(samples))
+            t = {"B": b, "events_ms": med, "img_per_s": 1e3 * b / med,
+                 "samples_ms": samples,
+                 "device_ms": queued_ms(lambda: mod.serve(
+                     xd, conf_thre=thr, max_det=1024), min(reps, 3)),
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            t["device_img_per_s"] = 1e3 * b / t["device_ms"]
+            out[f"{key}_b{b}"] = t
+            log(f"serve {key} B {b}: {t}")
+            del xd
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_stem(rng, module, size, serve_b):
+    """K1 at the model's stem width against its plain version (uint8
+    images to float32 and bf16, B 1 and the serve batch, `stem_limit`),
+    then its times at those batches (`stem_times`: CUDA events, device ms,
+    plain ms, `stem_bound`, the cuDNN yardstick). Returns ({case: times
+    and "of_tolerance"}, channels, max float32 error)."""
+    import torch
+
+    from yolox_tpu_torch.models.blocks import fold_focus_weight
+
+    focus = module.backbone.backbone.stem
+    wb = fold_focus_weight(focus.conv.conv.weight.float()).contiguous()
+    c = wb.shape[0]
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(
+        np.float32)).to(CARD)
+    bias = torch.from_numpy(rng.uniform(-1, 1, c).astype(np.float32)).to(
+        CARD)
+    batches = sorted({1, serve_b})
+    rel, err = {}, 0.0
+    for b in batches:
+        img = torch.from_numpy(rng.integers(0, 256, (b, size, size, 3),
+                                            dtype=np.uint8)).to(CARD)
+        for dt in (torch.float32, torch.bfloat16):
+            w = wb if dt == torch.float32 else wb.bfloat16().float()
+            e, r, r0 = check_stem(img, w, scale, bias, "silu", dt)
+            key = f"b{b}" + ("" if dt == torch.float32 else "_bf16")
+            rel[key] = r
+            if dt == torch.float32:
+                err = max(err, e)
+            log(f"K1 C{c} {key} uint8 -> {dt} matches its plain version: "
+                f"max |d| {e:.3g}, {r:.3g} of its tolerance ({r0:.3g} "
+                "without the tensor-core term)")
+        del img
+    times = stem_times(rng, wb, scale, bias, size, batches)
+    return ({k: {**t, "of_tolerance": rel[k]} for k, t in times.items()},
+            c, err)
+
+
+def zoo_q1_times(calls):
+    """Q1 over the launches of one serve call (`capture_int8_convs`): the
+    replay's ms (CUDA events) and device ms alone (`queued_ms`), the plain
+    versions' ms, the summed `int8_conv_bound` and cuDNN's bf16 conv of
+    each shape replayed alike (`int8_conv_times`' yardstick, lighter)."""
+    import collections
+
+    import torch
+    import torch.nn.functional as F
+
+    from yolox_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain
+
+    def library(args):
+        x, w, _, _, k, stride = args[:6]
+        xb = x.to(torch.bfloat16)
+        wb = torch.ones((w.shape[0], x.shape[1], k, k), dtype=torch.bfloat16,
+                        device=x.device).contiguous(
+                            memory_format=torch.channels_last)
+        return lambda: F.conv2d(xb, wb, stride=stride, padding=(k - 1) // 2)
+
+    def bound(args):
+        b, cin, cout, h, w, k, stride, _ = _conv_key(0, args)
+        out_bytes = 1 if args[8] is not None else (
+            2 if args[7] == torch.bfloat16 else 4)
+        return int8_conv_bound(b, h, w, cin, cout, k, stride, 1, out_bytes)
+
+    libs = [library(a) for _, a in calls]
+
+    def replay():
+        for _, a in calls:
+            int8_conv(*a)
+
+    def replay_library():
+        for f in libs:
+            f()
+
+    t = {"launches": len(calls), "ms": cuda_ms(replay, 2, warmup=1),
+         "device_ms": queued_ms(replay, 2),
+         "plain_ms": cuda_ms(lambda: [int8_conv_plain(*a) for _, a in calls],
+                             1, warmup=0),
+         "bound_ms": sum(bound(a)[0] for _, a in calls),
+         "library_ms": cuda_ms(replay_library, 2, warmup=1),
+         "library_device_ms": queued_ms(replay_library, 2),
+         "shapes": len({_conv_key(0, a) for _, a in calls})}
+    t["bound_by"] = collections.Counter(
+        bound(a)[1] for _, a in calls).most_common(1)[0][0]
+    return t
+
+
+def zoo_int8(cfg, gpu_mod, bf_mod, size, thr, rng, counters, total):
+    """int8 HBM serving at B ZOO_INT8_B from the bf16 module, with a table
+    calibrated on the card (float32 module, 2 frames): Q1 against its
+    plain version at every shape of `int8_conv_shapes(module, size,
+    ZOO_INT8_B)` (`check_int8_conv`); one serve call with the launch
+    counters read around it (Q1 once per BaseConv, K1 for the Focus stem,
+    K2 once); the detections of its first image against the CPU's int8
+    HBM serve of that frame (a bf16 module with the same weights and
+    table) at phase 11's int8 tolerances (`match_int8_detections`);
+    the share of the card's float32 detections that int8 keeps
+    (`bf16_rows_match`'s tolerances, reported); Q1's times over that call
+    (`zoo_q1_times`). Returns (result, Q1 max error)."""
+    import copy
+
+    import torch
+
+    calib = torch.from_numpy(rng.integers(0, 256, (2, size, size, 3),
+                                          dtype=np.uint8)).to(CARD)
+    table = gpu_mod.calibrate_int8(calib)
+    shapes = int8_conv_shapes(bf_mod, size, ZOO_INT8_B)
+    n_q1 = sum(shapes.values())
+    gen = torch.Generator(device=CARD).manual_seed(11)
+    q1_err = q1_off = 0.0
+    for b, cin, cout, h, w, k, stride, groups in sorted(shapes):
+        x, w8, scale, bias, out_scale = q_inputs(gen, b, cin, cout, h, w, k)
+        e, off = check_int8_conv(x, w8, scale, bias, k, stride, out_scale,
+                                 False)
+        q1_err, q1_off = max(q1_err, e), max(q1_off, off)
+        del x, w8
+    log(f"{cfg.name}: Q1 matches its plain version at the {len(shapes)} "
+        f"distinct shapes of its {n_q1} int8 convs (B {ZOO_INT8_B}): "
+        f"float32 max |d| {q1_err:.3g}, codes off by 1 {q1_off:.3g}")
+
+    frames = rng.integers(0, 256, (ZOO_INT8_B, size, size, 3),
+                          dtype=np.uint8)
+    _zero(counters)
+    dets, valid = bf_mod.serve(frames, conf_thre=thr, max_det=1024,
+                               int8_hbm_qtab=table)
+    n = _count(counters)
+    # the HBM mode keeps the Focus stem float (K1); every BaseConv on Q1
+    _check_launches(f"{cfg.name} int8 HBM serve at B {ZOO_INT8_B}", n,
+                    _only(counters, int8_conv=n_q1 - 1, stem=1, nms=1))
+    _add(total, n)
+
+    def as_dets(dets, valid):
+        """`serve`'s rows -> `Detections`-like dicts (score obj * cls)."""
+        out = []
+        for r, m in zip(dets.float().cpu().numpy(), valid.cpu().numpy()):
+            r = r[m]
+            out.append({"bboxes": r[:, :4], "scores": r[:, 4] * r[:, 5],
+                        "labels": r[:, 6]})
+        return out
+
+    cpu_mod = copy.deepcopy(bf_mod).to("cpu")
+    t0 = time.perf_counter()
+    want = cpu_mod.serve(frames[:1], conf_thre=thr, max_det=1024,
+                         int8_hbm_qtab={k: v.cpu() for k, v in table.items()})
+    cpu_s = time.perf_counter() - t0
+    del cpu_mod
+    paired, flips, unpaired, box_d, score_d = match_int8_detections(
+        as_dets(dets[:1], valid[:1]), as_dets(*want), thr)
+    log(f"{cfg.name} int8 HBM, card (first of B {ZOO_INT8_B}) against "
+        f"the CPU ({cpu_s:.1f} s): {paired} rows paired, {unpaired} within "
+        f"{INT8_DET_SCORE_TOL} of the threshold unpaired, labels differ on "
+        f"{flips}, box max |d| {box_d:.3g} px, score {score_d:.3g}")
+    if paired < INT8_MIN_DETS or flips > INT8_LABEL_FLIPS * paired:
+        raise AssertionError(f"{cfg.name} int8 HBM: {paired} rows paired, "
+                             f"{flips} labels differ")
+    fdets, fvalid = gpu_mod.serve(frames, conf_thre=thr, max_det=1024)
+    keep = bf16_rows_match(detections_as_rows(as_dets(dets, valid)),
+                           detections_as_rows(as_dets(fdets, fvalid)), thr)
+    log(f"{cfg.name} int8 HBM against float32 on the card at B "
+        f"{ZOO_INT8_B} (reported): {keep[0]:.4f} of float32's and "
+        f"{keep[1]:.4f} of int8's detections matched")
+    calls = capture_int8_convs(bf_mod, frames, thr, int8_hbm_qtab=table)
+    q1 = zoo_q1_times(calls)
+    log(f"{cfg.name} Q1 over one B {ZOO_INT8_B} HBM call: {q1}")
+    del calls
+    return ({"q1_shapes": len(shapes), "q1_launches": n_q1 - 1,
+             "card_vs_cpu": {"paired": paired, "unpaired": unpaired,
+                             "label_flips": flips, "box_max_abs_px": box_d,
+                             "score_max_abs": score_d, "cpu_s": cpu_s},
+             "float32_kept": list(keep[:2]), "q1": q1}, q1_err)
+
+
+def conv_bwd_step_times(shapes, b):
+    """K3 and K4 replayed over a bf16 step's launches (`shapes` in step
+    order, B `b`) beside their library yardsticks replayed alike
+    (`conv_bwd_calls`): the device ms of each replay (`queued_ms`: in a
+    full run, after phase 16's traces, torch.profiler dropped up to 90% of
+    such a replay's kernels on an H100), and the summed bounds
+    (`conv_bwd_bounds`)."""
+    import torch
+
+    made, calls = {}, {"k3": [], "k4": [], "k3_lib": [], "k4_lib": []}
+    bounds = {"k3": 0.0, "k4": 0.0}
+    for i, (ci, co, h, w) in enumerate(shapes):
+        if (ci, co, h, w) not in made:
+            made[ci, co, h, w] = conv_bwd_calls(conv_bwd_case(
+                300 + i, b, ci, co, h, w, torch.bfloat16, CARD))
+        for k in calls:
+            calls[k].append(made[ci, co, h, w][k])
+        for k, (t_b, t_o) in conv_bwd_bounds(b, ci, co, h * w, 2,
+                                             True).items():
+            bounds[k] += max(t_b, t_o)
+    out = {}
+    for k in ("k3", "k4"):
+        out[k] = {
+            "device_ms": queued_ms(lambda: [f() for f in calls[k]], 3),
+            "library_device_ms": queued_ms(
+                lambda: [f() for f in calls[k + "_lib"]], 3),
+            "bound_ms": bounds[k], "launches": len(shapes)}
+    del made, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_steps(cfg, init, size, b, rng, counters, total, n_convs):
+    """1 + ZOO_STEPS bf16 `fused_bwd` steps at B `b` from the seeded
+    `init`,
+    the launch counters read around each (K3 and K4 once per 1x1 SiLU
+    BaseConv, nothing else), losses finite; CUDA events of the timed
+    steps, peak memory, and one step's kernels (`device_time`, K3's and
+    K4's among them)."""
+    import copy
+
+    import torch
+
+    from yolox_tpu_torch.core import init_train_state, make_train_step
+
+    module = copy.deepcopy(init).to(CARD)
+    state = init_train_state(module)
+    step = make_train_step(module, cfg.num_classes,
+                           compute_dtype=torch.bfloat16, fused_bwd=True)
+    x = torch.from_numpy(rng.integers(0, 256, (b, size, size, 3),
+                                      dtype=np.uint8)).to(CARD).float()
+    labels = torch.from_numpy(synthetic_labels(rng, b, size)).to(CARD)
+    want = _only(counters, reduce_sums=n_convs, main_1x1=n_convs)
+    torch.cuda.reset_peak_memory_stats()
+    samples, losses = [], {}
+    for i in range(1 + ZOO_STEPS):
+        torch.cuda.synchronize()
+        _zero(counters)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, out = step(state, x, labels, 0.01)
+        end.record()
+        n = _count(counters)
+        if n != want:
+            raise AssertionError(f"a {cfg.name} step launched {n}, want "
+                                 f"{want}")
+        _add(total, n)
+        losses = {k: float(v) for k, v in out.items()}
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"a {cfg.name} step gave a non-finite "
+                                 f"loss: {losses}")
+        if i:
+            samples.append(start.elapsed_time(end))
+    med = float(np.median(samples))
+    r = {"B": b, "median_ms": med, "img_per_s": 1e3 * b / med,
+         "samples_ms": samples, "losses": losses,
+         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "launches": n}
+    dev_ms, top = device_time(lambda: step(state, x, labels, 0.01), 1)
+    r["kernels_ms"] = dev_ms
+    r["k3_ms"] = sum(v for k, v in top if "reduce_kernel" in k
+                     and "at::native" not in k)
+    r["k4_ms"] = sum(v for k, v in top if any(n in k for n in K4_KERNELS))
+    r["top"] = [(k[:60], round(v, 3)) for k, v in top[:6]]
+    del module, state, step, x
+    torch.cuda.empty_cache()
+    return r
+
+
+def zoo_train(cfg, init, size, train_b, rng, gpu_mod, counters, total):
+    """K3 and K4 against their plain versions at every distinct 1x1 SiLU
+    conv shape of the model (B ZOO_KERNEL_B, float32 and bf16, as phase
+    6); the fused step against autograd at B ZOO_PARITY_B on one held
+    SimOTA assignment (as phase 7, with the float64 autograd step as the
+    arbiter: `ZOO_F32_SLACK`); bf16 training at B `train_b`
+    (`zoo_steps`): a batch that does not fit in the card's memory is
+    recorded and halved until one fits, and the phase says so; K3 / K4
+    replayed over the step that ran (`conv_bwd_step_times`). Returns
+    (result, the 1x1 shapes, K3 / K4 float32 max errors)."""
+    import copy
+
+    import torch
+
+    shapes = kernel_conv_shapes(gpu_mod, size)
+    errs, worst = {"k3": 0.0, "k4": 0.0}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for i, (ci, co, h, w) in enumerate(sorted(set(shapes))):
+            r = check_conv_bwd(conv_bwd_case(100 + i, ZOO_KERNEL_B, ci, co, h,
+                                             w, dtype, CARD))
+            for k in ("k3", "k4"):
+                if dtype == torch.float32:
+                    errs[k] = max(errs[k], r[k][0])
+                worst[f"{k} {name}"] = max(worst.get(f"{k} {name}", 0.0),
+                                           r[k][1])
+    log(f"{cfg.name}: K3 / K4 match their plain versions at the "
+        f"{len(set(shapes))} distinct shapes of its {len(shapes)} 1x1 SiLU "
+        f"convs (B {ZOO_KERNEL_B}); worst error over tolerance "
+        + json.dumps({k: round(v, 4) for k, v in worst.items()}))
+
+    base = copy.deepcopy(init).to(CARD)
+    xp = torch.from_numpy(rng.uniform(0, 255, (ZOO_PARITY_B, size, size, 3))
+                          .astype(np.float32)).to(CARD)
+    lp = torch.from_numpy(synthetic_labels(rng, ZOO_PARITY_B, size)).to(CARD)
+    held = _assignment(base, xp, lp, cfg.num_classes)
+    l_f, g_f, _ = _held_step(copy.deepcopy(base), xp, lp, held, True,
+                             cfg.num_classes)
+    l_a, g_a, _ = _held_step(copy.deepcopy(base), xp, lp, held, False,
+                             cfg.num_classes)
+    l_64, g_64, _ = _held_step(copy.deepcopy(base).double(), xp, lp, held,
+                               False, cfg.num_classes, torch.float64)
+    r_grad, r_loss = tensors_close(g_f, g_a, TRAIN_TOL), _losses_close(l_f,
+                                                                       l_a)
+    r_f, r_a = (tensors_close(g, g_64, TRAIN_TOL) for g in (g_f, g_a))
+    q_f, q_a = (_losses_close(v, l_64) for v in (l_f, l_a))
+    log(f"{cfg.name}: held assignment ({int(held['num_fg'].sum())} fg), "
+        f"B {ZOO_PARITY_B}: fused against autograd, gradients at "
+        f"{r_grad:.3g} and losses at {r_loss:.3g} of their tolerances; "
+        f"against the float64 autograd step, gradients fused {r_f:.3g} "
+        f"and autograd {r_a:.3g}, losses fused {q_f:.3g} and autograd "
+        f"{q_a:.3g}")
+    if r_f > max(1.0, ZOO_F32_SLACK * r_a) or \
+            q_f > max(1.0, ZOO_F32_SLACK * q_a):
+        raise AssertionError(f"{cfg.name}: the fused step's gradients "
+                             "disagree with autograd's")
+    del base, g_f, g_a, g_64
+
+    b, oom = train_b, []
+    while True:
+        try:
+            steps = zoo_steps(cfg, init, size, b, rng, counters, total,
+                              len(shapes))
+            break
+        except torch.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            oom.append(b)
+            log(f"FINDING: {cfg.name} training at B {b} does not fit in "
+                f"the card's memory; halving the batch")
+            if b == 1:
+                raise
+            b //= 2
+    log(f"{cfg.name} bf16 fused training at B {b}: {steps}")
+    per_step = conv_bwd_step_times(shapes, b)
+    log(f"{cfg.name} K3 / K4 over one B {b} step's launches: "
+        f"{per_step}")
+    return ({"kernel_convs": len(shapes), "distinct": len(set(shapes)),
+             "kernel_checks_of_tolerance": worst,
+             "parity": {"grad": r_grad, "loss": r_loss,
+                        "fused_vs_float64": [r_f, q_f],
+                        "autograd_vs_float64": [r_a, q_a]},
+             "train_batch": train_b, "ran_batch": b, "oom_at": oom,
+             "steps": steps, "k3_k4_per_step": per_step}, shapes, errs)
+
+
+def zoo_augment(cfg, init, size, n_convs, rng, counters, total):
+    """One device-augmented bf16 `fused_bwd` step of the model (B
+    ZOO_AUG_B, ZOO_AUGMENT) with the launch counters read around it: K5
+    once, K3 and K4 once per 1x1 SiLU conv; losses finite."""
+    import copy
+
+    import torch
+
+    from yolox_tpu_torch.core import (
+        init_train_state,
+        make_augmented_train_step,
+    )
+
+    tiles, hw, labels = synthetic_tiles(rng, ZOO_AUG_B, size)
+    args = [torch.from_numpy(a).to(CARD) for a in (tiles, hw, labels)]
+    module = copy.deepcopy(init).to(CARD)
+    state = init_train_state(module)
+    step = make_augmented_train_step(
+        module, cfg.num_classes, augment_kwargs=dict(ZOO_AUGMENT),
+        compute_dtype=torch.bfloat16, fused_bwd=True)
+    gen = torch.Generator(device=CARD).manual_seed(5)
+    _zero(counters)
+    state, out = step(state, *args, gen, 0.01, (size, size))
+    n = _count(counters)
+    _check_launches(f"{cfg.name} device-augmented step", n,
+                    _only(counters, shear_xy=1, reduce_sums=n_convs,
+                          main_1x1=n_convs))
+    _add(total, n)
+    losses = {k: float(v) for k, v in out.items()}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"the augmented step gave {losses}")
+    return {"B": ZOO_AUG_B, "losses": losses}
+
+
+def run_zoo(lines, models=ZOO_MODELS):
+    """Phase 18: yolox-tiny, -m, -l and -x at full width and depth on
+    CARD (`zoo_serve`, `zoo_serve_times`, `zoo_stem`, `zoo_int8`,
+    `zoo_train`; `zoo_augment` for tiny); one JSON line a model, with the
+    card's name and power limit. Returns the launches of the phase's main
+    paths by kernel."""
+    import torch
+
+    from yolox_tpu_torch import YoloxConfig, YoloxModule
+
+    t0 = time.perf_counter()
+    on_card = torch.device(CARD).type == "cuda"
+    if on_card:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    card = nvidia_smi() if on_card else "cpu"
+    counters = _launch_counters()
+    total = dict.fromkeys(counters, 0)
+    rng = np.random.default_rng(18)
+    for name, seed, size, serve_b, train_b in models:
+        t = time.perf_counter()
+        cfg = YoloxConfig.get_named_config(name)
+        cfg.test_size = (size, size)
+        # the seeded weights, made once on the host; each module a copy
+        init = YoloxModule.from_config(cfg, rng_seed=seed, device="cpu")
+        serve, gpu_mod, bf_mod, thr = zoo_serve(cfg, init, size, rng,
+                                                counters, total)
+        times = zoo_serve_times({"float32": gpu_mod, "bfloat16": bf_mod},
+                                size, serve_b, thr)
+        stem, channels, stem_err = zoo_stem(rng, gpu_mod, size, serve_b)
+        int8, q1_err = zoo_int8(cfg, gpu_mod, bf_mod, size, thr, rng,
+                                counters, total)
+        train, shapes, conv_errs = zoo_train(cfg, init, size, train_b, rng,
+                                             gpu_mod, counters, total)
+        del gpu_mod, bf_mod
+        torch.cuda.empty_cache()
+        aug = zoo_augment(cfg, init, size, len(shapes), rng, counters,
+                          total) if name == "yolox_tiny" else None
+        del init
+        line = {"zoo": {
+            "model": name, "card": card, "size": size, "seed": seed,
+            "serve_batch": serve_b, "serve": serve, "serve_times": times,
+            "stem": {"channels": channels, "max_abs_err": stem_err, **stem},
+            "int8_hbm": {**int8, "max_abs_err": q1_err},
+            "train": {**train, "max_abs_err": conv_errs},
+            "augment": aug, "wall_s": time.perf_counter() - t}}
+        lines.append(line)
+        log(json.dumps(line))
+    log(f"phase 18 (model zoo) wall: {time.perf_counter() - t0:.1f} s; "
+        f"launches {total}; card: {card}")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -6831,6 +7472,8 @@ def main() -> int:
     mark("16 profilers")
     ab_launches = run_augment_abs(lines)
     mark("17 augmentation A/Bs")
+    zoo_launches = run_zoo(lines)
+    mark("18 model zoo")
     for entry in kernels:
         key = {"stem_conv_bn_act": "stem", "nms_keep": "nms"}.get(
             entry["name"], entry["name"])
@@ -6841,6 +7484,7 @@ def main() -> int:
         entry["launches_harness"] = harness_launches[key]
         entry["launches_profile"] = profile_launches[key]
         entry["launches_ab"] = ab_launches[key]
+        entry["launches_zoo"] = zoo_launches[key]
     for line in lines:
         log(json.dumps(line))
     log(json.dumps({"phase_wall_s": walls,

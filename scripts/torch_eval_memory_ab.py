@@ -100,8 +100,10 @@ _LAUNCHER = ("import subprocess, sys; "
              "sys.exit(subprocess.run(sys.argv[1:]).returncode)")
 
 
-def run(dets: int, images: int) -> list:
-    """One child a mode; each mode's JSON record (or its error)."""
+def run(dets: int, images: int, timeout=None) -> list:
+    """One child a mode; each mode's JSON record (or its error). With a
+    `timeout` (s), a child still running then raises
+    `subprocess.TimeoutExpired`."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     child = _CHILD.format(repo=repo)
     records = []
@@ -109,7 +111,7 @@ def run(dets: int, images: int) -> list:
         out = subprocess.run(
             [sys.executable, "-c", _LAUNCHER, sys.executable, "-c", child,
              mode, str(dets), str(images)],
-            capture_output=True, text=True)
+            capture_output=True, text=True, timeout=timeout)
         line = (out.stdout.strip().splitlines() or ["{}"])[-1]
         if out.returncode != 0:
             line = json.dumps({"mode": mode, "error": out.stderr[-400:]})

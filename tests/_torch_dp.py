@@ -20,6 +20,39 @@ NUM_CLASSES = 3
 SIZE = 64
 WORLD = 2
 PER_RANK = 2    # images a rank takes of the global batch
+# bounds on every wait, so that a hang fails the test by name within
+# minutes: a gloo collective (the group's timeout) and the spawned ranks
+# as a whole (`parallel.mesh.spawn_ranks`)
+COLLECTIVE_TIMEOUT_S = 180
+SPAWN_TIMEOUT_S = 480
+
+
+def run_bounded(cmd, timeout, **kw):
+    """Run `cmd` in a session of its own, output captured; at `timeout`
+    seconds kill the session (the command and every process it started,
+    spawned ranks included) and fail, naming `cmd`. Returns (returncode,
+    output)."""
+    import signal
+    import subprocess
+
+    proc = subprocess.Popen(cmd, start_new_session=True, text=True,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, **kw)
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out = proc.communicate()[0]
+        raise AssertionError(f"{cmd} did not end within {timeout} s:\n"
+                             f"{out[-3000:]}") from None
+    return proc.returncode, out
+
+
+def sleeping_rank(rank, seconds):
+    """A rank that sleeps `seconds[rank]` (`spawn_ranks`' tests)."""
+    import time
+
+    time.sleep(seconds[rank])
 
 
 def tiny_config(cls, data_dir=None, out_dir=None):
@@ -122,7 +155,8 @@ def parallel_rank(rank, root):
     _threads(WORLD)
     with open(os.path.join(root, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
-    mesh.init_distributed("gloo", f"file://{root}/rendezvous", WORLD, rank)
+    mesh.init_distributed("gloo", f"file://{root}/rendezvous", WORLD, rank,
+                          timeout=COLLECTIVE_TIMEOUT_S)
     out = {"rank": rank}
     try:
         group = torch.distributed.group.WORLD

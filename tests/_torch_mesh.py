@@ -15,6 +15,11 @@ import torch
 
 WORLD = 8
 SIZE = 128
+# bounds on every wait, so that a hang fails the test by name within
+# minutes: a gloo collective (the group's timeout) and the spawned ranks
+# as a whole (`parallel.mesh.spawn_ranks`)
+COLLECTIVE_TIMEOUT_S = 180
+SPAWN_TIMEOUT_S = 480
 SEED = 0          # nano's weights, as the JAX package's mesh tests
 V3_SEED = 5
 
@@ -51,7 +56,8 @@ def mesh_rank(rank, root):
     torch.set_num_threads(max(1, cpu_share() // WORLD))
     with open(os.path.join(root, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
-    pm.init_distributed("gloo", f"file://{root}/rendezvous", WORLD, rank)
+    pm.init_distributed("gloo", f"file://{root}/rendezvous", WORLD, rank,
+                        timeout=COLLECTIVE_TIMEOUT_S)
     out = {"rank": rank}
     models = {}
     try:

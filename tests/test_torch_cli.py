@@ -4,8 +4,9 @@ against the JAX package's `yolox-tpu` (`yolox_tpu/cli/`).
 A tiny config addressed as `module:ClassName` in both packages (depth
 0.33, width 0.125, 64 px, 3 classes) on the synthetic COCO set
 (`conftest.coco_dir`); every port command runs in-process with
-`--device cpu`. One JAX evaluation and one JAX `visualize` are the only
-JAX graphs.
+`--device cpu`, but for the two-process `train`, which runs as a command
+of its own so that its spawned ranks can be killed at a deadline. One JAX
+evaluation and one JAX `visualize` are the only JAX graphs.
 
 Tolerances: the evaluation's AP50:95 / AP50 within 1e-6 of JAX's (the
 same weights, images and thresholds); demo detections equal to
@@ -15,14 +16,18 @@ equal to JAX's.
 """
 
 import os
+import sys
 import textwrap
 
 import numpy as np
 import pytest
 import torch
 
+from tests import _torch_dp as dp
 from yolox_tpu_torch.cli import main as torch_main
 import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CFG = """
 class {cls}({base}):
@@ -278,18 +283,24 @@ def test_devices_flag_on_cuda(cfgs, monkeypatch):
     assert launch_plan(parse(["-c", cfgs[0]])).backend is None
 
 
-def test_train_in_two_processes_on_the_cpu(cfgs, monkeypatch):
+def test_train_in_two_processes_on_the_cpu(cfgs):
     """`train --device cpu -d 2 -b 4`: two gloo ranks of two images each
     train the epoch's 3 iterations and evaluate; rank 0 alone writes the
-    checkpoints."""
+    checkpoints. The command runs in a session of its own, killed at
+    `SPAWN_TIMEOUT_S`, and its ranks meet at a file in the run's folder
+    (a port freed for them could be taken by another test first)."""
     from yolox_tpu_torch.utils.checkpoint import load_checkpoint
 
     name, _, root = cfgs
-    monkeypatch.setenv("OMP_NUM_THREADS", str(max(
-        1, tests._torch_threads.cpu_share() // 2)))
-    assert torch_main(["train", "-c", "tiny_cli_cfg:TorchTinyRanks",
-                       "--device", "cpu", "-d", "2", "-b", "4", "-n",
-                       "dp_run"]) == 0
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root), REPO, os.environ.get("PYTHONPATH", "")]),
+        OMP_NUM_THREADS=str(max(1, tests._torch_threads.cpu_share() // 2)))
+    rc, out = dp.run_bounded(
+        [sys.executable, "-m", "yolox_tpu_torch.cli", "train", "-c",
+         "tiny_cli_cfg:TorchTinyRanks", "--device", "cpu", "-d", "2", "-b",
+         "4", "-n", "dp_run", "--dist-url", f"file://{root}/rendezvous"],
+        dp.SPAWN_TIMEOUT_S, cwd=REPO, env=env)
+    assert rc == 0, out[-3000:]
     out = root / "out" / "dp_run"
     writes = (out / "writes.txt").read_text().split()
     assert writes and set(writes) == {"0"}

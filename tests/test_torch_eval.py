@@ -139,6 +139,7 @@ def _random_scene(seed, n_dets=15, tie=0.9):
     return images, anns, dets
 
 
+@pytest.mark.smoke
 def test_native_matching_equals_python_and_jax():
     """Crowds, area spread and score ties: the port's native and python
     matching agree with each other and with JAX's native matching."""

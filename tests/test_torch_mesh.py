@@ -297,8 +297,6 @@ def _jax_params(module):
 def run(tmp_path_factory):
     """Each case's inputs, the ranks' records, the one-process and JAX
     references."""
-    import torch.multiprocessing as mp
-
     root = str(tmp_path_factory.mktemp("mesh"))
     x8 = np.random.default_rng(7).uniform(
         0, 255, (8, tmesh.SIZE, tmesh.SIZE, 3)).astype(np.float32)
@@ -337,7 +335,8 @@ def run(tmp_path_factory):
     with open(os.path.join(root, "inputs.pkl"), "wb") as f:
         pickle.dump({"cases": cases, "params": {"nano": _preds(nano),
                                                 "yolov3": _preds(v3)}}, f)
-    mp.spawn(tmesh.mesh_rank, args=(root,), nprocs=tmesh.WORLD, join=True)
+    pm.spawn_ranks(tmesh.mesh_rank, (root,), tmesh.WORLD,
+                   tmesh.SPAWN_TIMEOUT_S)
     ranks = []
     for r in range(tmesh.WORLD):
         with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:

@@ -54,6 +54,7 @@ def test_plain_keep_bit_equal_to_jax_and_pallas(case, thr):
         np.testing.assert_array_equal(got[i].numpy(), pallas, err_msg=str(i))
 
 
+@pytest.mark.smoke
 def test_edge_cases_keep_what_greedy_nms_keeps():
     """Spot checks of the edge cases' meaning at thr 0.5."""
     boxes, valid = nms_edge_cases()
@@ -66,6 +67,7 @@ def test_edge_cases_keep_what_greedy_nms_keeps():
     assert not keep[5].any()                          # all invalid
 
 
+@pytest.mark.smoke
 @pytest.mark.parametrize("thr", [0.45, 0.65])
 def test_class_offset_path_bit_equal_to_jax(thr):
     rng = np.random.default_rng(1)

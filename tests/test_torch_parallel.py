@@ -106,7 +106,7 @@ def _jax_dp_step(jmod, start, x, labels, fused_bwd):
 def run(coco_dir, voc_dir, tmp_path_factory):  # noqa: F811
     """Both ranks' records (`tests/_torch_dp.py::parallel_rank`), the JAX
     start state and JAX's two-device steps."""
-    import torch.multiprocessing as mp
+    from yolox_tpu_torch.parallel.mesh import spawn_ranks
 
     root = str(tmp_path_factory.mktemp("dp"))
     x, labels = _batch()
@@ -124,7 +124,7 @@ def run(coco_dir, voc_dir, tmp_path_factory):  # noqa: F811
         pickle.dump({"x": x, "labels": labels, "cases": cases,
                      "coco_dir": _with_val2017(coco_dir),
                      "voc_root": voc_dir[0]}, f)
-    mp.spawn(dp.parallel_rank, args=(root,), nprocs=dp.WORLD, join=True)
+    spawn_ranks(dp.parallel_rank, (root,), dp.WORLD, dp.SPAWN_TIMEOUT_S)
     ranks = []
     for r in range(dp.WORLD):
         with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
@@ -281,11 +281,31 @@ def test_two_rank_voc_evaluation_equals_one_process_and_jax(run, voc_dir):  # no
     assert two == one == jax_res
 
 
+@pytest.mark.parametrize("timeout", [None, 120])
+def test_spawn_ranks_waits_for_ranks_that_end_apart(timeout):
+    from yolox_tpu_torch.parallel.mesh import spawn_ranks
+
+    t0 = time.monotonic()
+    spawn_ranks(dp.sleeping_rank, ((0, 2),), 2, timeout)
+    assert time.monotonic() - t0 >= 2
+
+
+def test_spawn_ranks_kills_ranks_past_the_deadline():
+    from yolox_tpu_torch.parallel.mesh import spawn_ranks
+
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match=r"ranks \[1\] of 2 running "
+                       "sleeping_rank"):
+        spawn_ranks(dp.sleeping_rank, ((0, 600),), 2, timeout=5)
+    assert time.monotonic() - t0 < 60
+
+
 def test_dryrun_data_parallel():
     from yolox_tpu_torch.parallel import dryrun_data_parallel
 
     out = dryrun_data_parallel(2, size=dp.SIZE,
-                               cfg=dp.tiny_config(yolox_tpu_torch.YoloxConfig))
+                               cfg=dp.tiny_config(yolox_tpu_torch.YoloxConfig),
+                               timeout=dp.COLLECTIVE_TIMEOUT_S)
     assert [r["gathered"] for r in out] == [[0, 1], [0, 1]]
     assert out[0]["total_loss"] == out[1]["total_loss"]
     assert np.isfinite(out[0]["total_loss"])
@@ -318,7 +338,6 @@ def test_sigterm_to_one_rank_stops_both_at_one_iteration(coco_dir, tmp_path):
     (a MAX all-reduce), rank 0 writes the resume checkpoint that redoes the
     epoch, and both exit 0 (a rank left waiting in a collective would
     fail or hang)."""
-    from yolox_tpu_torch.parallel.mesh import free_port
     from yolox_tpu_torch.utils.checkpoint import load_checkpoint
 
     out = tmp_path / "out"
@@ -328,7 +347,9 @@ def test_sigterm_to_one_rank_stops_both_at_one_iteration(coco_dir, tmp_path):
         [str(tmp_path), REPO, os.environ.get("PYTHONPATH", "")]),
         OMP_NUM_THREADS=str(max(1, tests._torch_threads.cpu_share() // 2)),
         PYTHONUNBUFFERED="1")
-    url = f"tcp://127.0.0.1:{free_port()}"
+    # a rendezvous file, not a port freed for the ranks: another test
+    # could take the port first
+    url = f"file://{tmp_path / 'rendezvous'}"
     procs = [subprocess.Popen(
         [sys.executable, "-m", "yolox_tpu_torch.cli", "train", "-c",
          "dp_preempt_cfg:PreemptConfig", "-b", "4", "--device", "cpu",

@@ -246,13 +246,13 @@ def test_eval_memory_ab_equals_jax():
     # a caller whose peak RSS is ~1 GB larger than a child's: each child
     # still reads its own (`ru_maxrss` is carried across exec)
     ballast = np.ones(125_000_000)
-    got = tem.run(20_000, 50)
+    got = tem.run(20_000, 50, timeout=300)
     caller_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
     del ballast
     out = subprocess.run(
         [sys.executable, str(SCRIPTS / "eval_memory_ab.py"), "--dets",
          "20000", "--images", "50"], capture_output=True, text=True,
-        check=True, cwd=REPO).stdout
+        check=True, cwd=REPO, timeout=300).stdout
     want = [json.loads(line) for line in out.strip().splitlines()]
     assert [r["mode"] for r in got] == ["columnar", "dict"]
     for g, w in zip(got, want):

@@ -6,7 +6,8 @@
   random models score every anchor near 1e-4, so rows whose golden scores
   agree to 1e-5 (relative) may swap places (`chip_smoke.assert_dets_match`,
   `GOLDEN_TIE`).
-- Seeded init gives the JAX package's weights exactly.
+- Seeded init gives the JAX package's weights exactly, for all seven
+  models (`tests/test_torch_model_zoo.py` builds on it for tiny, m, l, x).
 - Batch padding and `stream` give `__call__`'s results.
 - `.pth` round trip with strict key checking; config, preproc, the import
   rule and the device rule.
@@ -64,6 +65,7 @@ def test_inference_matches_committed_golden(name):
                       want["valid"], tie=GOLDEN_TIE)
 
 
+@pytest.mark.smoke
 def test_serve_matches_committed_golden_both_stems():
     """The port has one stem; it must match the JAX serve graph with the
     space-to-depth stem on and off."""
@@ -89,8 +91,10 @@ def test_dets_matcher_rejects_a_real_difference():
         assert_dets_match(d, v, want["dets_s2d_on"], v, tie=GOLDEN_TIE)
 
 
-@pytest.mark.parametrize("name,seed", [("yolox_nano", 1234), ("yolox_s", 4321),
-                                       ("yolov3", 777)])
+@pytest.mark.parametrize("name,seed", [
+    ("yolox_nano", 1234), ("yolox_s", 4321), ("yolov3", 777),
+    pytest.param("yolox_tiny", 41, marks=pytest.mark.smoke),
+    ("yolox_m", 42), ("yolox_l", 43), ("yolox_x", 44)])
 def test_seeded_init_equals_jax(name, seed):
     from yolox_tpu import YoloxConfig as JConfig
     from yolox_tpu import YoloxModule as JModule

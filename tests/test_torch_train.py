@@ -358,6 +358,7 @@ def test_ema_matches_formula_and_jax():
     assert int(sd["num_batches_tracked"]) == 1 and ema.updates == 2
 
 
+@pytest.mark.smoke
 def test_bf16_train_step_runs_and_learns():
     """f32 master weights, bf16 compute: finite losses that fall over a
     few steps on one batch; parameters, momentum and EMA stay f32."""

@@ -35,6 +35,7 @@ import datetime
 import os
 import socket
 import tempfile
+import time
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -108,6 +109,31 @@ def init_distributed(backend: str, init_method: str, world_size: int,
 def destroy_distributed() -> None:
     if is_distributed():
         dist.destroy_process_group()
+
+
+def spawn_ranks(fn, args: tuple, nprocs: int,
+                timeout: Optional[float] = None) -> None:
+    """`torch.multiprocessing.spawn(fn, args, nprocs)`, waiting at most
+    `timeout` seconds (None: until they end). A rank that raises makes
+    this raise (spawn's `ProcessRaisedException`, the others stopped);
+    ranks still running at the deadline are killed and this raises
+    `TimeoutError`, naming `fn`."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.spawn(fn, args=args, nprocs=nprocs, join=False)
+    deadline = None if timeout is None else time.monotonic() + timeout
+    while not ctx.join(timeout=None if deadline is None else 1.0):
+        if deadline is None or time.monotonic() < deadline:
+            continue
+        alive = [i for i, p in enumerate(ctx.processes) if p.is_alive()]
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        for p in ctx.processes:
+            p.join(10)
+        raise TimeoutError(f"ranks {alive} of {nprocs} running "
+                           f"{getattr(fn, '__name__', fn)} did not end "
+                           f"within {timeout} s")
 
 
 def _collective_device(group):
@@ -309,17 +335,16 @@ def gather_batch(mesh: ServingMesh, *tensors: torch.Tensor):
 
 
 def dryrun_data_parallel(n: int, size: int = 64, batch_per_rank: int = 2,
-                         cfg=None):
+                         cfg=None, timeout: Optional[float] = None):
     """One data-parallel training step of `cfg` (a `YoloxConfig`; default
     yolox-s at full depth and width) at `size` px, `batch_per_rank` images
     a rank, each rank its own, in `n` gloo processes on the CPU: the
     counterpart of the JAX package's `__graft_entry__.dryrun_multichip`.
     Each rank checks that the ranks end the step with the same parameters,
     momentum, EMA and BN statistics; returns each rank's {"total_loss",
-    "gathered": all_gather_objects of its rank}."""
+    "gathered": all_gather_objects of its rank}. With a `timeout` (s),
+    each collective and the whole run wait at most that long."""
     import json
-
-    import torch.multiprocessing as mp
 
     from yolox_tpu_torch.config import YoloxConfig
 
@@ -327,9 +352,8 @@ def dryrun_data_parallel(n: int, size: int = 64, batch_per_rank: int = 2,
         cfg = YoloxConfig.get_named_config("yolox_s")
     with tempfile.TemporaryDirectory() as root:
         threads = max(1, torch.get_num_threads() // n)
-        mp.spawn(_dryrun_rank,
-                 args=(n, root, cfg, size, batch_per_rank, threads),
-                 nprocs=n, join=True)
+        spawn_ranks(_dryrun_rank, (n, root, cfg, size, batch_per_rank,
+                                   threads, timeout), n, timeout)
         out = []
         for r in range(n):
             with open(os.path.join(root, f"rank{r}.json")) as f:
@@ -363,7 +387,8 @@ def ranks_identical(state, group=None) -> bool:
     return not any_rank(not torch.equal(ref.cpu(), mine), group)
 
 
-def _dryrun_rank(rank, n, root, cfg, size, batch_per_rank, threads):
+def _dryrun_rank(rank, n, root, cfg, size, batch_per_rank, threads,
+                 timeout=None):
     import json
 
     import numpy as np
@@ -374,7 +399,8 @@ def _dryrun_rank(rank, n, root, cfg, size, batch_per_rank, threads):
     )
 
     torch.set_num_threads(threads)  # the caller's threads, shared out
-    init_distributed("gloo", f"file://{root}/rendezvous", n, rank)
+    init_distributed("gloo", f"file://{root}/rendezvous", n, rank,
+                     timeout=timeout)
     try:
         module = cfg.get_model(device="cpu")
         state = init_train_state(module)
