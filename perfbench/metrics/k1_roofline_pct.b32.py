@@ -1,0 +1,7 @@
+"""k1_roofline_pct.b32: `k1_roofline_pct` read in the cells that report
+`serve_img_per_s.b32`, the end-to-end rate it moves there."""
+
+from perfbench import cells
+
+read = cells.module("metrics", "k1_roofline_pct").read
+UNIT = cells.module("metrics", "k1_roofline_pct").UNIT
