@@ -6174,9 +6174,9 @@ def check_serve_profile(res, on_card):
             raise AssertionError(f"{s['stage']}: checksum {s['checksum']}")
     if not on_card:
         return
-    _stage_launches(stages[0], stem=1)
-    _stage_launches(stages[1], stem=1)
-    _stage_launches(stages[2], stem=1, nms=1)
+    _stage_launches(stages[0], stem_conv_bn_act=1)
+    _stage_launches(stages[1], stem_conv_bn_act=1)
+    _stage_launches(stages[2], stem_conv_bn_act=1, nms_keep=1)
     for s in stages:
         for share in ("mfu_pct", "hbm_pct"):
             if not s[share] <= 100 * PROFILE_ROOF_LIMIT:
@@ -6224,7 +6224,7 @@ def check_train_profile(res, n_convs, on_card):
     if not on_card:
         return
     eval_fwd, train_fwd, fwd_loss, grad, step = res["stages"]
-    _stage_launches(eval_fwd, stem=1)
+    _stage_launches(eval_fwd, stem_conv_bn_act=1)
     _stage_launches(train_fwd)
     _stage_launches(fwd_loss)
     _stage_launches(grad, reduce_sums=n_convs, main_1x1=n_convs)

@@ -173,25 +173,15 @@ def times(fn, iters, on_card):
             "kernel_ms": kernel_ms(fn)}
 
 
-def kernel_counters():
-    """The hand kernels' wrappers (K1-K5), each counting its launches."""
-    from yolox_tpu_torch.ops.conv_bwd import main_1x1, reduce_sums
-    from yolox_tpu_torch.ops.nms_kernel import nms_keep
-    from yolox_tpu_torch.ops.shear_kernel import shear_xy
-    from yolox_tpu_torch.ops.stem import stem_conv_bn_act
-
-    return {"stem": stem_conv_bn_act, "nms": nms_keep,
-            "reduce_sums": reduce_sums, "main_1x1": main_1x1,
-            "shear_xy": shear_xy}
-
-
 def checked_call(fn):
     """(fn()'s checksum as a float, each hand kernel's launches in that
-    call; 0 on the CPU, where the plain versions run)."""
-    counters = kernel_counters()
-    before = {k: f.launches for k, f in counters.items()}
+    call, by wrapper name (`launch_counts`); 0 on the CPU, where the plain
+    versions run)."""
+    from yolox_tpu_torch.utils.trace import launch_counts
+
+    before = launch_counts()
     value = float(fn())
-    return value, {k: f.launches - before[k] for k, f in counters.items()}
+    return value, {k: n - before[k] for k, n in launch_counts().items()}
 
 
 def write_trace(fn, iters, path, on_card, with_stack=False):

@@ -625,3 +625,47 @@ def test_exported_operator_equals_direct_launch(cuda, kernel):
     assert got.dtype == want.dtype and got.shape == want.shape
     assert got.stride() == want.stride()
     assert torch.equal(got, want)
+
+
+def test_spans_share_the_kernels_clock(cuda, tmp_path):
+    """torch.profiler stamps the port's spans (`utils/trace.py`) on the
+    clock of the device's kernels: over a few yolox-s B 8 serve calls,
+    matched in order, every K1 kernel starts at or after the start of the
+    `yolox.k1` span that launched it, and every K2 kernel after its
+    `yolox.k2`."""
+    import json
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolox_tpu_torch import YoloxConfig, YoloxModule
+
+    module = YoloxModule.from_config(YoloxConfig.get_named_config("yolox_s"),
+                                     rng_seed=3, dtype=torch.bfloat16)
+    x = np.random.default_rng(6).integers(0, 256, (8, 640, 640, 3),
+                                          dtype=np.uint8)
+    calls = 4
+    module.serve(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            module.serve(x)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    data = json.loads(path.read_text())
+    events = data["traceEvents"] if isinstance(data, dict) else data
+
+    def starts(cat, match):
+        return sorted(float(e["ts"]) for e in events
+                      if e.get("ph") == "X" and e.get("cat") == cat
+                      and match(e.get("name", "")))
+
+    for span, kernel in (("yolox.k1", r"stem_\w+_kernel"),
+                         ("yolox.k2", r"nms_kernel")):
+        spans = starts("user_annotation", lambda n, s=span: n == s)
+        kernels = starts("kernel", re.compile(kernel).search)
+        assert len(spans) == len(kernels) == calls, (span, spans, kernels)
+        for s, k in zip(spans, kernels):
+            assert k >= s, (span, s, k)

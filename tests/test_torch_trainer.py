@@ -340,6 +340,9 @@ def test_profiler_trace(coco_dir, tmp_path, monkeypatch):
     assert (prof_dir / "trace_rank0.json").stat().st_size > 0
     names = {e.key for e in trainer.profiler.key_averages()}
     assert any("conv" in n for n in names)
+    from yolox_tpu_torch.utils.trace import TRAIN_SPANS
+
+    assert set(TRAIN_SPANS) <= names
 
 
 def test_trainer_needs_a_device_or_cpu(coco_dir, tmp_path, monkeypatch):

@@ -52,6 +52,7 @@ from yolox_tpu_torch.data.device_augment import device_augment_batch
 from yolox_tpu_torch.models.assign import assign_batch, losses_given_assignment
 from yolox_tpu_torch.parallel.mesh import MeanReducer
 from yolox_tpu_torch.utils.ema import ModelEMA
+from yolox_tpu_torch.utils.trace import span
 
 
 @dataclass
@@ -115,35 +116,43 @@ def make_train_step(module, num_classes: int, *, momentum: float = 0.9,
         x = torch.as_tensor(x).to(dev, compute_dtype)
         labels = torch.as_tensor(labels).to(dev, torch.float32)
 
-        head_out = module.forward_train(x, fused_bwd=fused_bwd, remat=remat)
+        with span("yolox.train.forward"):
+            head_out = module.forward_train(x, fused_bwd=fused_bwd,
+                                            remat=remat)
         if assignment is None:
-            assignment = assign_batch(head_out, labels, num_classes,
-                                      num_candidates)
-        losses = losses_given_assignment(head_out, labels, assignment,
-                                         num_classes, use_l1)
+            with span("yolox.train.assign"):
+                assignment = assign_batch(head_out, labels, num_classes,
+                                          num_candidates)
+        with span("yolox.train.losses"):
+            losses = losses_given_assignment(head_out, labels, assignment,
+                                             num_classes, use_l1)
         opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
-        losses["total_loss"].backward()
-        if freeze_prefix:
-            for name, p in module.named_parameters():
-                if name.startswith(freeze_prefix):
-                    p.grad = None  # SGD skips it: value and momentum stay
-        losses = {k: v.detach() for k, v in losses.items()}
-        if reducer is not None:
-            # frozen parameters have no gradient on any rank, and eval-mode
-            # BN layers (a frozen prefix) no new statistics
-            reducer([p.grad for p in module.parameters()
-                     if p.grad is not None]
-                    + [t for m in module.modules()
-                       if isinstance(m, torch.nn.BatchNorm2d) and m.training
-                       for t in (m.running_mean, m.running_var)]
-                    + list(losses.values()))
-        set_hyperparams(opt, lr=lr, momentum=momentum,
-                        weight_decay=weight_decay)
-        opt.step()
+        with span("yolox.train.backward"):
+            opt.zero_grad(set_to_none=True)
+            losses["total_loss"].backward()
+            if freeze_prefix:
+                for name, p in module.named_parameters():
+                    if name.startswith(freeze_prefix):
+                        p.grad = None  # SGD skips it: value and momentum stay
+            losses = {k: v.detach() for k, v in losses.items()}
+            if reducer is not None:
+                # frozen parameters have no gradient on any rank, and
+                # eval-mode BN layers (a frozen prefix) no new statistics
+                reducer([p.grad for p in module.parameters()
+                         if p.grad is not None]
+                        + [t for m in module.modules()
+                           if isinstance(m, torch.nn.BatchNorm2d)
+                           and m.training
+                           for t in (m.running_mean, m.running_var)]
+                        + list(losses.values()))
+        with span("yolox.train.sgd"):
+            set_hyperparams(opt, lr=lr, momentum=momentum,
+                            weight_decay=weight_decay)
+            opt.step()
         state.step += 1
         if use_ema:
-            state.ema.update(module, ema_decay)
+            with span("yolox.train.ema"):
+                state.ema.update(module, ema_decay)
         return state, losses
 
     return step

@@ -19,6 +19,7 @@ import numpy as np
 
 from yolox_tpu_torch.config import YoloxConfig
 from yolox_tpu_torch.ops.preproc import letterbox_ratio, preproc
+from yolox_tpu_torch.utils.trace import span
 
 
 class Detections(TypedDict):
@@ -45,8 +46,9 @@ class YoloxProcessor:
     def __call__(self, inputs: Iterable, dtype=np.float32) -> np.ndarray:
         """PIL images or HWC arrays -> letterboxed NHWC batch in `dtype`
         (float32 as in the JAX package, or uint8 with the same values)."""
-        return np.stack([preproc(np.asarray(image), self.config.test_size,
-                                 dtype=dtype)[0] for image in inputs])
+        with span("yolox.letterbox"):
+            return np.stack([preproc(np.asarray(image), self.config.test_size,
+                                     dtype=dtype)[0] for image in inputs])
 
     def postprocess(self, images: Iterable, tensor,
                     threshold: float = 0.5) -> List[Detections]:

@@ -66,6 +66,7 @@ from yolox_tpu_torch.parallel.mesh import (
     process_count,
     space_exchange,
 )
+from yolox_tpu_torch.utils.trace import span
 
 _WEIGHTS_URL = (
     "https://github.com/Megvii-BaseDetection/YOLOX/releases/download/"
@@ -127,22 +128,25 @@ class Yolox:
         to the next power of two, so request sizes map onto a few shapes;
         the padded rows are dropped at fetch. Returns (images, dets, valid,
         n) with dets / valid still being computed on the device."""
-        batch = self.processor(images, dtype=np.uint8)
-        n = len(images)
-        padded = 1 << (n - 1).bit_length() if n > 1 else 1
-        if padded != n:
-            batch = np.concatenate(
-                [batch, np.zeros((padded - n,) + batch.shape[1:], batch.dtype)])
-        dets, valid = self.module.serve(
-            batch, conf_thre=threshold,
-            nms_thre=self.processor.config.nmsthre, max_det=1024,
-            int8_qtab=self.int8_qtab, int8_hbm_qtab=self.int8_hbm_qtab)
+        with span("yolox.dispatch"):
+            batch = self.processor(images, dtype=np.uint8)
+            n = len(images)
+            padded = 1 << (n - 1).bit_length() if n > 1 else 1
+            if padded != n:
+                batch = np.concatenate(
+                    [batch,
+                     np.zeros((padded - n,) + batch.shape[1:], batch.dtype)])
+            dets, valid = self.module.serve(
+                batch, conf_thre=threshold,
+                nms_thre=self.processor.config.nmsthre, max_det=1024,
+                int8_qtab=self.int8_qtab, int8_hbm_qtab=self.int8_hbm_qtab)
         return images, dets, valid, n
 
     def _fetch(self, pending) -> List[Detections]:
         images, dets, valid, n = pending
-        return self.processor.postprocess_dets(
-            images, dets[:n].cpu().numpy(), valid[:n].cpu().numpy())
+        with span("yolox.fetch"):
+            return self.processor.postprocess_dets(
+                images, dets[:n].cpu().numpy(), valid[:n].cpu().numpy())
 
     def __call__(self, inputs, threshold: float = 0.5) -> List[Detections]:
         if isinstance(inputs, (np.ndarray, torch.Tensor)):
@@ -331,11 +335,12 @@ class YoloxModule(nn.Module):
         if self.training:
             raise RuntimeError("forward and serve are eval-mode paths; call "
                                ".eval() first (forward_train trains)")
-        x = _nhwc(x).to(self.device)
-        if x.dtype != torch.uint8 or not self._focus_stem \
-                or mode not in (None, "hbm"):
-            x = x.to(self.dtype)
-        return x.contiguous()
+        with span("yolox.h2d"):
+            x = _nhwc(x).to(self.device)
+            if x.dtype != torch.uint8 or not self._focus_stem \
+                    or mode not in (None, "hbm"):
+                x = x.to(self.dtype)
+            return x.contiguous()
 
     @contextlib.contextmanager
     def _int8_mode(self, mode, table=None, percentile=None):
@@ -417,14 +422,20 @@ class YoloxModule(nn.Module):
                    int8_qtab: Optional[dict] = None,
                    int8_hbm_qtab: Optional[dict] = None):
         """`serve` without the inference-mode decorator: what
-        `torch.export` traces (`make_serving_fn`)."""
+        `torch.export` traces (`make_serving_fn`), with no span recorded."""
         mode, table = _int8_choice(int8_qtab, int8_hbm_qtab)
-        with self._int8_mode(mode, table):
-            fpn_outs = self.backbone(self._image_batch(x, mode))
-            outs, grids, strides = self.head.forward_raw_levels(fpn_outs)
-        return postprocess_fused_levels(
-            outs, grids, strides, self.head.num_classes, conf_thre,
-            nms_thre, class_agnostic, max_det)
+        with span("yolox.serve"):
+            with self._int8_mode(mode, table):
+                x = self._image_batch(x, mode)
+                with span("yolox.backbone"):
+                    fpn_outs = self.backbone(x)
+                with span("yolox.head"):
+                    outs, grids, strides = self.head.forward_raw_levels(
+                        fpn_outs)
+            with span("yolox.postprocess"):
+                return postprocess_fused_levels(
+                    outs, grids, strides, self.head.num_classes, conf_thre,
+                    nms_thre, class_agnostic, max_det)
 
     def make_serving_fn(self, mesh=None, conf_thre: float = 0.5,
                         nms_thre: float = 0.65, class_agnostic: bool = False,
@@ -477,22 +488,27 @@ class YoloxModule(nn.Module):
                              f"{halo.SLAB_STRIDE}")
         r0, r1 = shard.rows
         maps = None
-        with self._int8_mode(mode, table), self._meshed_call(exchange):
-            if r1 > r0:
-                maps = self.head.raw_level_maps(self.backbone(
-                    self._image_batch(x[shard.images, r0:r1], mode)))
-            if exchange is not None:
-                nb = shard.images.stop - shard.images.start
-                shapes = [(nb, 5 + self.head.num_classes, h // s, w // s)
-                          for s in self.head.strides]
-                maps = exchange.gather_rows(
-                    maps, shapes, self.head.map_dtype(self.dtype, mode),
-                    self.device)
-        outs, grids, strides = self.head.levels_from_maps(maps)
-        dets, valid = postprocess_fused_levels(
-            outs, grids, strides, self.head.num_classes, conf_thre,
-            nms_thre, class_agnostic, max_det)
-        return gather_batch(mesh, dets, valid)
+        with span("yolox.serve"):
+            with self._int8_mode(mode, table), self._meshed_call(exchange):
+                if r1 > r0:
+                    x = self._image_batch(x[shard.images, r0:r1], mode)
+                    with span("yolox.backbone"):
+                        fpn_outs = self.backbone(x)
+                    with span("yolox.head"):
+                        maps = self.head.raw_level_maps(fpn_outs)
+                if exchange is not None:
+                    nb = shard.images.stop - shard.images.start
+                    shapes = [(nb, 5 + self.head.num_classes, h // s, w // s)
+                              for s in self.head.strides]
+                    maps = exchange.gather_rows(
+                        maps, shapes, self.head.map_dtype(self.dtype, mode),
+                        self.device)
+            with span("yolox.postprocess"):
+                outs, grids, strides = self.head.levels_from_maps(maps)
+                dets, valid = postprocess_fused_levels(
+                    outs, grids, strides, self.head.num_classes, conf_thre,
+                    nms_thre, class_agnostic, max_det)
+            return gather_batch(mesh, dets, valid)
 
     @torch.no_grad()
     def visualize(self, x, targets, save_prefix: str = "assign_vis_"):

@@ -34,6 +34,7 @@ import torch
 from yolox_tpu_torch.ops import _build
 from yolox_tpu_torch.ops.boxes import pairwise_iou_xyxy
 from yolox_tpu_torch.ops.library import exportable
+from yolox_tpu_torch.utils.trace import span
 
 TILE = 64               # boxes a tile side, bits a mask word
 QUAD = 4                # column tiles a block (256 threads)
@@ -180,39 +181,41 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, thr: float,
     """Greedy NMS keep mask over score-sorted, already class-offset boxes.
     boxes (B, K, 4) float32 xyxy, valid (B, K) bool. Returns keep (B, K)
     bool. `rows` and `group` force R and G (`launch_plan`)."""
-    dev = boxes.device
-    if dev.type == "cpu":
-        return nms_keep_plain(boxes, valid, thr)
-    if dev.type != "cuda":
-        raise ValueError(f"nms kernel: unsupported device {dev}")
-    shape = boxes.shape
-    if len(shape) != 3 or shape[2] != 4:
-        raise ValueError(f"nms kernel: want boxes (B, K, 4), got "
-                         f"{tuple(shape)}")
-    if boxes.dtype != torch.float32:
-        raise ValueError(f"nms kernel: boxes must be float32, got {boxes.dtype}")
-    if valid.dtype != torch.bool or valid.shape != shape[:2] \
-            or valid.device != dev:
-        raise ValueError("nms kernel: valid must be (B, K) bool on the "
-                         "boxes' device")
-    if not (boxes.is_contiguous() and valid.is_contiguous()):
-        raise ValueError("nms kernel: inputs must be contiguous")
-    b, k = shape[0], shape[1]
-    keep = torch.empty((b, k), dtype=torch.bool, device=dev)
-    if b == 0 or k == 0:
+    with span("yolox.k2"):
+        dev = boxes.device
+        if dev.type == "cpu":
+            return nms_keep_plain(boxes, valid, thr)
+        if dev.type != "cuda":
+            raise ValueError(f"nms kernel: unsupported device {dev}")
+        shape = boxes.shape
+        if len(shape) != 3 or shape[2] != 4:
+            raise ValueError(f"nms kernel: want boxes (B, K, 4), got "
+                             f"{tuple(shape)}")
+        if boxes.dtype != torch.float32:
+            raise ValueError(f"nms kernel: boxes must be float32, got "
+                             f"{boxes.dtype}")
+        if valid.dtype != torch.bool or valid.shape != shape[:2] \
+                or valid.device != dev:
+            raise ValueError("nms kernel: valid must be (B, K) bool on the "
+                             "boxes' device")
+        if not (boxes.is_contiguous() and valid.is_contiguous()):
+            raise ValueError("nms kernel: inputs must be contiguous")
+        b, k = shape[0], shape[1]
+        keep = torch.empty((b, k), dtype=torch.bool, device=dev)
+        if b == 0 or k == 0:
+            return keep
+        stream = _build.stream(dev)
+        args = _launch_args(dev, stream, b, k, rows, group)
+        try:
+            _build.launch(_build.load("nms").yolox_nms_keep, dev, "nms kernel",
+                          _ARGS.pack(boxes.data_ptr(), valid.data_ptr(),
+                                     keep.data_ptr(), *args, thr))
+        except RuntimeError:
+            _counters.pop((dev.index, stream), None)  # state unknown
+            _prepared.clear()
+            raise
+        nms_keep.launches += 1
         return keep
-    stream = _build.stream(dev)
-    args = _launch_args(dev, stream, b, k, rows, group)
-    try:
-        _build.launch(_build.load("nms").yolox_nms_keep, dev, "nms kernel",
-                      _ARGS.pack(boxes.data_ptr(), valid.data_ptr(),
-                                 keep.data_ptr(), *args, thr))
-    except RuntimeError:
-        _counters.pop((dev.index, stream), None)  # state unknown
-        _prepared.clear()
-        raise
-    nms_keep.launches += 1
-    return keep
 
 
 nms_keep.launches = 0

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from yolox_tpu_torch.ops import _build
 from yolox_tpu_torch.ops.library import exportable
+from yolox_tpu_torch.utils.trace import span
 
 _IN_CODES = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
 _OUT_CODES = {torch.float32: 1, torch.bfloat16: 2}
@@ -88,24 +89,25 @@ def stem_conv_bn_act(x, wb, scale, bias, act: str = "silu",
     """Fused Focus stem. x (B, H, W, 3) NHWC uint8 / float32 / bfloat16,
     wb (C, 3, 6, 6) folded kernel, scale / bias (C,) float32 eval-BN fold.
     Returns (B, C, H/2, W/2) NCHW in `out_dtype` (float32 or bfloat16)."""
-    if x.device.type == "cpu":
-        return stem_conv_bn_act_plain(x, wb, scale, bias, act, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"stem kernel: unsupported device {x.device}")
-    _check(x, wb, scale, bias, act, out_dtype)
-    b, h, w, _ = x.shape
-    cout = wb.shape[0]
-    out = torch.empty((b, cout, h // 2, w // 2), dtype=out_dtype,
-                      device=x.device)
-    if out.numel() == 0:
+    with span("yolox.k1"):
+        if x.device.type == "cpu":
+            return stem_conv_bn_act_plain(x, wb, scale, bias, act, out_dtype)
+        if x.device.type != "cuda":
+            raise ValueError(f"stem kernel: unsupported device {x.device}")
+        _check(x, wb, scale, bias, act, out_dtype)
+        b, h, w, _ = x.shape
+        cout = wb.shape[0]
+        out = torch.empty((b, cout, h // 2, w // 2), dtype=out_dtype,
+                          device=x.device)
+        if out.numel() == 0:
+            return out
+        _build.launch(_build.load("stem").yolox_stem_conv_bn_act, x.device,
+                      "stem kernel", x.data_ptr(), _IN_CODES[x.dtype],
+                      wb.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                      out.data_ptr(), _OUT_CODES[out_dtype], b, h, w, cout,
+                      _ACT_CODES[act])
+        stem_conv_bn_act.launches += 1
         return out
-    _build.launch(_build.load("stem").yolox_stem_conv_bn_act, x.device,
-                  "stem kernel", x.data_ptr(), _IN_CODES[x.dtype],
-                  wb.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                  out.data_ptr(), _OUT_CODES[out_dtype], b, h, w, cout,
-                  _ACT_CODES[act])
-    stem_conv_bn_act.launches += 1
-    return out
 
 
 stem_conv_bn_act.launches = 0

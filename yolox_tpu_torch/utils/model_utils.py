@@ -19,7 +19,9 @@ from typing import Dict, Tuple
 
 import torch
 
-from yolox_tpu_torch.models.blocks import BN_EPS, BaseConv
+# a module reference: `models/` imports `utils.trace`, so the blocks
+# module may still be loading here
+import yolox_tpu_torch.models.blocks as blocks
 
 
 def count_params(module: torch.nn.Module) -> int:
@@ -49,13 +51,13 @@ def fuse_conv_and_bn(conv: torch.nn.Conv2d, bn: torch.nn.BatchNorm2d):
     and `bn` turned into the identity plus the folded bias (gamma 1, beta
     beta - mean * scale, mean 0, var 1 - eps)."""
     gamma = bn.weight.double()
-    scale = gamma / torch.sqrt(bn.running_var.double() + BN_EPS)
+    scale = gamma / torch.sqrt(bn.running_var.double() + blocks.BN_EPS)
     bias = bn.bias.double() - bn.running_mean.double() * scale
     conv.weight.copy_(conv.weight.double() * scale[:, None, None, None])
     bn.weight.fill_(1.0)
     bn.bias.copy_(bias)
     bn.running_mean.zero_()
-    bn.running_var.fill_(1.0 - BN_EPS)
+    bn.running_var.fill_(1.0 - blocks.BN_EPS)
     return conv, bn
 
 
@@ -64,7 +66,7 @@ def fuse_model(module: torch.nn.Module) -> torch.nn.Module:
     the state-dict keys stay, so the module still loads and saves
     `.pth` files. Returns `module`."""
     for m in module.modules():
-        if isinstance(m, BaseConv):
+        if isinstance(m, blocks.BaseConv):
             fuse_conv_and_bn(m.conv, m.bn)
     return module
 
