@@ -669,3 +669,98 @@ def test_spans_share_the_kernels_clock(cuda, tmp_path):
         assert len(spans) == len(kernels) == calls, (span, spans, kernels)
         for s, k in zip(spans, kernels):
             assert k >= s, (span, s, k)
+
+
+def _serve_module(name, x):
+    """A seeded bfloat16 `name` with decisive scores on the batch x."""
+    from yolox_tpu_torch import YoloxConfig, YoloxModule
+
+    cfg = YoloxConfig.get_named_config(name)
+    cfg.test_size = x.shape[1:3]
+    module = spread_scores(YoloxModule.from_config(cfg, rng_seed=3), x[:4])
+    return module.cast_params(torch.bfloat16)
+
+
+def test_queued_serve_calls_match_synced_ones(cuda):
+    """Serve calls dispatched back to back, each batch staged
+    (`utils/h2d.py`) while the calls before it still run, give the
+    detections of the same calls each followed by a synchronize: the
+    staging and device buffers are not reused under a queued call."""
+    rng = np.random.default_rng(11)
+    batches = [rng.integers(0, 256, (32, 640, 640, 3), dtype=np.uint8)
+               for _ in range(2)]
+    module = _serve_module("yolox_s", batches[0])
+    order = [0, 1, 0, 1, 1, 0]
+
+    def run(sync):
+        out = []
+        for i in order:
+            out.append(module.serve(batches[i], conf_thre=0.1,
+                                    max_det=256))
+            if sync:
+                torch.cuda.synchronize()
+        return [(d.cpu(), v.cpu()) for d, v in out]
+
+    run(True)
+    synced, queued = run(True), run(False)
+    assert sum(int(v.sum()) for _, v in synced) > 100
+    for (sd, sv), (qd, qv) in zip(synced, queued):
+        assert torch.equal(sv, qv) and torch.equal(sd, qd)
+    for j, i in enumerate(order):
+        assert torch.equal(synced[j][0], synced[order.index(i)][0])
+
+
+def test_staged_copy_equals_its_source(cuda):
+    """The staged route (`utils/h2d.to_device`) on a B 256 letterboxed
+    uint8 batch and a float32 NCHW batch: bit-equal, contiguous NHWC,
+    counted once each with its bytes."""
+    from yolox_tpu_torch.models.yolox import _nhwc
+    from yolox_tpu_torch.utils import h2d, trace
+
+    rng = np.random.default_rng(12)
+    u8 = rng.integers(0, 256, (256, 640, 640, 3), dtype=np.uint8)
+    f32 = rng.uniform(0, 255, (8, 3, 640, 640)).astype(np.float32)
+    for x, want in ((u8, u8), (f32, f32.transpose(0, 2, 3, 1))):
+        before = trace.copy_counts()
+        got = h2d.to_device(_nhwc(x), cuda)
+        after = trace.copy_counts()
+        assert got.device.type == "cuda" and got.is_contiguous()
+        assert np.array_equal(got.cpu().numpy(), want)
+        assert after["staged"] == before["staged"] + 1
+        assert after["staged_bytes"] == before["staged_bytes"] + x.nbytes
+        assert after["pinned_direct"] == before["pinned_direct"]
+
+
+def test_serve_routes_are_counted(cuda):
+    """A pageable batch of more than one chunk is staged, one of a single
+    chunk copied by the driver, a pinned one copied directly, one on the
+    device not copied; each serve call launches K1 and K2 once, and the
+    routes of one batch give the same detections."""
+    from yolox_tpu_torch.utils import h2d, trace
+
+    x = np.random.default_rng(13).integers(0, 256, (16, 640, 640, 3),
+                                           dtype=np.uint8)
+    assert x.nbytes > h2d.CHUNK_BYTES >= x[:1].nbytes
+    module = _serve_module("yolox_nano", x)
+    module.serve(x)
+    routes = {"staged": x, "pageable": x[:1],
+              "pinned_direct": torch.from_numpy(x).pin_memory(),
+              "device": torch.from_numpy(x).to(cuda)}
+    outs = {}
+    for route, src in routes.items():
+        copies, launches = trace.copy_counts(), trace.launch_counts()
+        outs[route] = module.serve(src, conf_thre=0.1)
+        torch.cuda.synchronize()
+        moved = {k: v - copies[k] for k, v in trace.copy_counts().items()
+                 if v != copies[k]}
+        want = {} if route == "device" else {route: 1}
+        if route == "staged":
+            want["staged_bytes"] = x.nbytes
+        assert moved == want, route
+        ran = {k: v - launches[k] for k, v in trace.launch_counts().items()}
+        assert ran["stem_conv_bn_act"] == ran["nms_keep"] == 1, route
+    del outs["pageable"]  # B 1: the convs may take other algorithms
+    assert int(outs["staged"][1].sum()) > 100
+    for route, (od, ov) in outs.items():
+        assert torch.equal(od, outs["staged"][0]), route
+        assert torch.equal(ov, outs["staged"][1]), route

@@ -182,3 +182,10 @@ def test_launch_counts_lists_every_wrapper():
     counts = trace.launch_counts()
     assert set(counts) == set(found)
     assert counts == {name: f.launches for name, f in found.items()}
+
+
+def test_copy_counts_has_the_four_routes():
+    counts = trace.copy_counts()
+    assert set(counts) == {"staged", "staged_bytes", "pinned_direct",
+                           "pageable"}
+    assert all(isinstance(v, int) and v >= 0 for v in counts.values())

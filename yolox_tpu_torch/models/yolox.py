@@ -66,6 +66,7 @@ from yolox_tpu_torch.parallel.mesh import (
     process_count,
     space_exchange,
 )
+from yolox_tpu_torch.utils.h2d import to_device
 from yolox_tpu_torch.utils.trace import span
 
 _WEIGHTS_URL = (
@@ -331,12 +332,14 @@ class YoloxModule(nn.Module):
         tensor -> a contiguous NHWC tensor on the module's device: uint8
         stays uint8 where the stem kernel K1 reads it (a Focus stem, in
         float or int8 `mode` "hbm"), everything else takes the module's
-        dtype, as the JAX package casts every image."""
+        dtype, as the JAX package casts every image. A CPU batch reaches
+        a CUDA module by `utils/h2d.to_device` (staged through pinned
+        memory above one chunk); the cast follows on the device."""
         if self.training:
             raise RuntimeError("forward and serve are eval-mode paths; call "
                                ".eval() first (forward_train trains)")
         with span("yolox.h2d"):
-            x = _nhwc(x).to(self.device)
+            x = to_device(_nhwc(x), self.device)
             if x.dtype != torch.uint8 or not self._focus_stem \
                     or mode not in (None, "hbm"):
                 x = x.to(self.dtype)

@@ -11,7 +11,8 @@ profiler recording, so an exported program holds no span.
 The spans (`SPANS`), outer to inner:
 
     yolox.serve          YoloxModule.serve_body / serve_meshed, whole
-    yolox.h2d            YoloxModule._image_batch: copy, cast, layout
+    yolox.h2d            YoloxModule._image_batch: staging, copy, cast,
+                         layout
     yolox.backbone       the backbone (and neck) of a serve call
     yolox.k1             the stem kernel K1 (ops/stem.py), in the backbone
     yolox.head           the head's raw level outputs
@@ -24,7 +25,9 @@ The spans (`SPANS`), outer to inner:
                          backward (the gradient all-reduce too), sgd, ema
 
 `launch_counts()` reads every hand kernel's launch counter (each wrapper's
-`.launches` attribute) by wrapper name.
+`.launches` attribute) by wrapper name; `copy_counts()` the host-to-device
+copy's routes (`utils/h2d.py`): batches staged through pinned memory and
+their bytes, pinned sources copied directly, plain pageable copies.
 """
 
 from __future__ import annotations
@@ -65,3 +68,13 @@ def launch_counts() -> dict:
     return {f.__name__: f.launches for f in (
         stem_conv_bn_act, nms_keep, reduce_sums, main_1x1, shear_x,
         shear_xy, int8_conv, int8_dwconv)}
+
+
+def copy_counts() -> dict:
+    """{"staged", "staged_bytes", "pinned_direct", "pageable"}: the image
+    batches copied to a CUDA device so far by each route of
+    `utils/h2d.to_device` (and the bytes staged); a CPU module copies
+    nothing and counts nothing."""
+    from yolox_tpu_torch.utils import h2d
+
+    return dict(h2d.COUNTS)
