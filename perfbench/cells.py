@@ -12,6 +12,10 @@ A cell is `perfbench/workloads/<cell>.json`:
      "limits": {<number compared>: <limit>, ...},
      "why": "..."}
 
+A configuration names its architecture (`"arch"`), the module
+`perfbench/archs/<arch>.py` that builds its plain reference and the
+program's network and holds its seeded-weight rules (`arch`).
+
 A traffic module has `setup(cell, seed, device) -> session`,
 `window(session, seconds) -> dict` (its end-to-end readings under
 "metrics", and what the per-layer readers read) and `check(session,
@@ -46,8 +50,25 @@ def load(name: str, workload: dict = None, config: dict = None) -> dict:
     dicts in place of the files."""
     cell = dict(workload or _json("workloads", name))
     cell["name"] = name
+    path = HERE / "configs" / f"{cell['config']}.json"
     cell["config"] = dict(config or _json("configs", cell["config"]))
+    arch(cell["config"], path)
     return cell
+
+
+def arch(config: dict, where="a configuration"):
+    """`perfbench/archs/<arch>.py` for the configuration's `arch`: its
+    `reference(config, quant, device)`, `program(config, state, device,
+    dtype)`, `STEM`, `RESIDUAL` and `small(config, size)`. There is no
+    default: a configuration with no `arch`, or one with no module, fails
+    with `where` (the file's path) and the architectures that exist."""
+    name = config.get("arch")
+    if not isinstance(name, str) or \
+            not (HERE / "archs" / f"{name}.py").is_file():
+        known = sorted(p.stem for p in (HERE / "archs").glob("*.py"))
+        raise SystemExit(f"perfbench: {where} names arch {name!r}; the "
+                         f"architectures are {', '.join(known)}")
+    return module("archs", name)
 
 
 def module(kind: str, name: str):

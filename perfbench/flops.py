@@ -1,11 +1,12 @@
 """The operations and bytes the yardstick divides by, counted on the
-benchmark's own reference network (`perfbench/reference/yolox.py`), so
-that no change to the program moves them.
+benchmark's own reference network of the configuration's architecture
+(`perfbench/archs/<arch>.py::reference`), so that no change to the
+program moves them.
 
 `conv_flops` runs the reference forward on meta tensors under a
 `TorchDispatchMode` and sums, over every `aten.convolution`, 2 * output
 elements * kh * kw * Cin / groups (the rule of the program's old census,
-`scripts/torch_serve_traffic_model.py::ConvCensus`), the Focus stem
+`scripts/torch_serve_traffic_model.py::ConvCensus`), the stem
 included: a multiply and an add per tap. BatchNorm, activations, pooling,
 the decode and the NMS are left out, as in the published GFLOPs.
 
@@ -17,12 +18,13 @@ the BN scale and bias read once in float32.
 from __future__ import annotations
 
 import functools
+import json
 import math
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from perfbench.reference.yolox import build
+from perfbench import cells
 
 
 class _ConvCount(TorchDispatchMode):
@@ -39,12 +41,13 @@ class _ConvCount(TorchDispatchMode):
 
 
 @functools.lru_cache(maxsize=None)
-def conv_flops(depth: float, width: float, num_classes: int, h: int,
-               w: int) -> int:
-    """Forward conv FLOPs of one image of h x w pixels."""
-    net = build({"depth": depth, "width": width, "num_classes": num_classes},
-                device="meta")
-    x = torch.empty((1, 3, h, w), device="meta")
+def conv_flops(config_json: str) -> int:
+    """Forward conv FLOPs of one image at the input size of the
+    configuration `config_json` (its JSON text: the whole configuration,
+    its `arch` with it, is the cache's key)."""
+    config = json.loads(config_json)
+    net = cells.arch(config).reference(config, device="meta")
+    x = torch.empty((1, 3, *config["input_size"]), device="meta")
     count = _ConvCount()
     with torch.no_grad(), count:
         net.head.levels(net.backbone(x))
@@ -52,9 +55,9 @@ def conv_flops(depth: float, width: float, num_classes: int, h: int,
 
 
 def config_flops(config: dict) -> int:
-    h, w = config["input_size"]
-    return conv_flops(config["depth"], config["width"],
-                      config["num_classes"], h, w)
+    """Forward conv FLOPs of one image at the configuration's input
+    size."""
+    return conv_flops(json.dumps(config, sort_keys=True))
 
 
 def stem_bytes(config: dict, batch: int, itemsize: int = 2) -> int:

@@ -3,8 +3,9 @@ built from it, and the check of the window's detections against the
 float32 reference.
 
 The program is `yolox_tpu_torch`, entered only through its public API:
-the network (`YoloxModule`, built from `YoloPafpn` and `YoloxHead` at the
-configuration's depth and width), `YoloxModule.serve` and `Yolox`.
+the network that the configuration's architecture builds
+(`perfbench/archs/<arch>.py::program`), `YoloxModule.serve` and `Yolox`.
+The reference network, too, is the architecture's.
 """
 
 from __future__ import annotations
@@ -14,9 +15,8 @@ import gc
 import numpy as np
 import torch
 
-from perfbench import compare, images
+from perfbench import cells, compare, images
 from perfbench.reference import precision
-from perfbench.reference import yolox as ref_yolox
 from perfbench.weights import (CALIBRATION_SHAPES, calibrate, seeded_state,
                                state_shapes)
 
@@ -28,10 +28,11 @@ def make_state(config: dict, seed: int, device, dtype=None) -> dict:
     """The configuration's seeded, calibrated state in its serving dtype
     (or `dtype`), made on `device` (`perfbench/weights.py`)."""
     dtype = dtype or getattr(torch, config["dtype"])
+    arch = cells.arch(config)
     with precision.strict_float32():
-        ref = ref_yolox.build(config, device=device)
+        ref = arch.reference(config, device=device)
         state = seeded_state(state_shapes(ref), config["init"], seed, device,
-                             dtype)
+                             dtype, arch)
         size = config["input_size"]
         scale = size[0] / 640
         shapes = [(int(h * scale), int(w * scale))
@@ -46,21 +47,10 @@ def make_state(config: dict, seed: int, device, dtype=None) -> dict:
 
 def build_module(config: dict, state: dict, device, dtype=None):
     """The program's network at the configuration's sizes with `state`
-    loaded, in eval mode, in the configuration's dtype (or `dtype`)."""
-    from yolox_tpu_torch import YoloxConfig, YoloxModule
-    from yolox_tpu_torch.models import YoloPafpn, YoloxHead
-
-    cfg = YoloxConfig.get_named_config(config["registry_name"])
-    cfg.depth, cfg.width = config["depth"], config["width"]
-    cfg.num_classes = config["num_classes"]
-    cfg.test_size = tuple(config["input_size"])
-    with torch.device(device):
-        module = YoloxModule(
-            YoloPafpn(cfg.depth, cfg.width, depthwise=False, act="silu"),
-            YoloxHead(cfg.num_classes, cfg.width, act="silu"), config=cfg)
-    module.cast_params(dtype or getattr(torch, config["dtype"]))
-    module.load_params(state)
-    return module, cfg
+    loaded, in eval mode, in the configuration's dtype (or `dtype`), and
+    the program's config object."""
+    return cells.arch(config).program(
+        config, state, device, dtype or getattr(torch, config["dtype"]))
 
 
 def free_program() -> None:
@@ -80,7 +70,8 @@ def reference_judge(cell: dict, state_host: dict, pool_images, programs,
     serve, margins = cell["traffic"]["serve"], cell["margins"]
     tally = compare.Tally()
     with precision.strict_float32(), torch.no_grad():
-        ref = ref_yolox.build(cell["config"], device=device)
+        ref = cells.arch(cell["config"]).reference(cell["config"],
+                                                  device=device)
         ref.load_state_dict({k: v.float() for k, v in state_host.items()})
         for i in range(0, len(pool_images), REF_BLOCK):
             x = torch.from_numpy(np.stack(pool_images[i:i + REF_BLOCK]))
@@ -117,8 +108,8 @@ def control_rows(cell: dict, state_host: dict, pool_images, device) -> list:
     serve = cell["traffic"]["serve"]
     out = []
     with precision.strict_float32(), torch.no_grad():
-        ref = ref_yolox.build(cell["config"], quant=precision.fp8,
-                              device=device)
+        ref = cells.arch(cell["config"]).reference(
+            cell["config"], quant=precision.fp8, device=device)
         ref.load_state_dict({k: v.float() for k, v in state_host.items()})
         for i in range(0, len(pool_images), REF_BLOCK):
             x = torch.from_numpy(np.stack(pool_images[i:i + REF_BLOCK]))

@@ -1,6 +1,7 @@
-"""Small cells for the CPU tests: a cell's own files with the model cut to
-width 0.125 at a small input and the traffic cut to match, handed to
-`cells.load` as dicts (no file of the benchmark is edited or added)."""
+"""Small cells for the CPU tests: a cell's own files with the model cut by
+its architecture's `small` (`perfbench/archs/<arch>.py`) to a small input,
+and the traffic cut to match, handed to `cells.load` as dicts (no file of
+the benchmark is edited or added)."""
 
 import json
 from pathlib import Path
@@ -9,10 +10,12 @@ HERE = Path(__file__).resolve().parents[1]
 
 
 def small_config(name: str, size: int = 160):
-    """The configuration `name` at width 0.125 and `size` px, in float32."""
+    """The configuration `name` as its architecture cuts it, at `size` px,
+    in float32."""
+    from perfbench import cells
+
     cfg = json.loads((HERE / "configs" / f"{name}.json").read_text())
-    cfg.update(width=0.125, input_size=[size, size], dtype="float32")
-    return cfg
+    return dict(cells.arch(cfg).small(cfg, size), dtype="float32")
 
 
 def small_cell(name: str, size: int = 256):

@@ -4,15 +4,17 @@ correct; with the timed path broken underneath, `correct` comes out false,
 once for each fault the cell can have (no cell spans chips, so none leaves
 out an exchange between them)."""
 
+import json
 import time
 
 import pytest
 import torch
 
 from perfbench import cells
-from perfbench_small import small_cell
+from perfbench_small import HERE, small_cell
 
 SEED = 2 ** 31 + 4242
+CELLS = sorted(p.stem for p in (HERE / "workloads").glob("*.json"))
 
 
 def run(name, seconds=0.5):
@@ -52,7 +54,10 @@ def altered(dets, valid):
     return dets, valid
 
 
-SERVE_CELLS = ["yolox_s.offline_b256", "yolox_x.offline_b32"]
+# every cell whose traffic serves through `YoloxModule.serve`
+SERVE_CELLS = [name for name in CELLS if json.loads(
+    (HERE / "workloads" / f"{name}.json").read_text())["traffic"]["kind"]
+    == "offline_batches"]
 
 
 @pytest.mark.parametrize("name", SERVE_CELLS)

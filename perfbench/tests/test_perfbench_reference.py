@@ -1,15 +1,15 @@
 """The plain reference against the port's plain CPU path on a seeded small
-yolox config (width 0.125, 64 px, float32): the forward, the served
-detections and the letterbox. The comparison lives here, never in the
-reference."""
+yolox config (as `archs/yolox.py::small` cuts it, 64 px, float32), both
+built through the architecture (`reference`, `program`): the forward, the
+served detections and the letterbox. The comparison lives here, never in
+the reference."""
 
 import numpy as np
 import pytest
 import torch
 
-from perfbench import compare, images, serving
+from perfbench import cells, compare, images, serving
 from perfbench.reference import postprocess
-from perfbench.reference import yolox as ref_yolox
 from perfbench_small import small_config
 
 SIZE = 64
@@ -18,9 +18,10 @@ SIZE = 64
 @pytest.fixture(scope="module")
 def small():
     cfg = small_config("yolox_s", size=SIZE)
+    arch = cells.arch(cfg)
     state = serving.make_state(cfg, 2 ** 31 + 99, "cpu")
-    module, pcfg = serving.build_module(cfg, state, "cpu")
-    ref = ref_yolox.build(cfg)
+    module, pcfg = arch.program(cfg, state, "cpu", torch.float32)
+    ref = arch.reference(cfg)
     ref.load_state_dict(state)
     x = torch.from_numpy(np.stack(images.frames([(SIZE, SIZE)] * 3, 5,
                                                 "cpu")))

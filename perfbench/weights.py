@@ -20,11 +20,12 @@ objects. Both sides of a comparison get the calibrated state; the
 program takes no part in making it.
 
 The scales (module constants; a configuration's `init` sets only its
-`residual_gain`):
+`residual_gain`; which keys are stem and residual convs is the
+architecture's, `perfbench/archs/<arch>.py`'s `STEM` and `RESIDUAL`):
   CONV_GAIN       every BaseConv weight ~ N(0, (gain / sqrt(fan_in))^2)
-  STEM_GAIN       the Focus conv's, which reads pixel values 0..255
-  residual_gain   the second conv of each residual bottleneck
-  (every k x k kernel (k > 1) after the stem has taps summing to zero, so
+  STEM_GAIN       the stem convs', which read pixel values 0..255
+  residual_gain   the second conv of each residual block
+  (every k x k kernel (k > 1) but the stem's has taps summing to zero, so
   that no layer passes a frame's mean level on: a seeded network that did
   would score whole frames by how much letterbox padding they hold; the
   stem keeps its draw: on raw 0..255 pixels a zero-sum stem leaves a
@@ -46,7 +47,6 @@ The scales (module constants; a configuration's `init` sets only its
 from __future__ import annotations
 
 import math
-import re
 
 import torch
 
@@ -66,9 +66,6 @@ VAR_FLOOR = 0.01
 # (h, w) of the calibration frames at a 640 px input (scaled to others)
 CALIBRATION_SHAPES = ((480, 640), (640, 480), (427, 640), (640, 640)) * 4
 
-# the second conv of a CSP bottleneck (`<csp>.m.<i>.conv2`)
-_RESIDUAL = re.compile(r"\.m\.\d+\.conv2\.conv\.weight$")
-
 
 def seed_generator(seed: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
@@ -76,12 +73,18 @@ def seed_generator(seed: int, device) -> torch.Generator:
     return g
 
 
-def _is_stem(key: str) -> bool:
-    return ".stem." in key and not key.startswith("head.")
+def _scale(key: str, shape, init: dict, arch):
+    """(multiplier, offset, kind, zero_sum) of the normal draw for one
+    tensor; `arch.STEM` and `arch.RESIDUAL` name the stem and residual
+    keys."""
+    stem = arch.STEM.search(key) is not None
+    # each k x k kernel (k > 1) but a stem's sums to zero over its taps:
+    # the conv sees edges and texture, not a frame's mean level
+    zero_sum = len(shape) == 4 and shape[2] * shape[3] > 1 and not stem
+    return _draw(key, shape, init, arch, stem) + (zero_sum,)
 
 
-def _scale(key: str, shape, init: dict):
-    """(multiplier, offset, kind) of the normal draw for one tensor."""
+def _draw(key: str, shape, init: dict, arch, stem: bool):
     fan = math.prod(shape[1:]) if len(shape) > 1 else 1
     for part in ("cls", "obj", "reg"):
         if f"head.{part}_preds." in key:  # scaled again by `calibrate`
@@ -90,9 +93,9 @@ def _scale(key: str, shape, init: dict):
             return 0.0, 0.0, "plain"
     j = BN_JITTER
     if key.endswith("conv.weight"):
-        if _is_stem(key):
+        if stem:
             gain = STEM_GAIN
-        elif _RESIDUAL.search(key):
+        elif arch.RESIDUAL.search(key):
             gain = init["residual_gain"]
         else:
             gain = CONV_GAIN
@@ -110,9 +113,10 @@ def _scale(key: str, shape, init: dict):
 
 
 def seeded_state(shapes: dict, init: dict, seed: int, device,
-                 dtype=torch.bfloat16) -> dict:
+                 dtype, arch) -> dict:
     """{key: tensor} for a reference state dict's `shapes` ({key: (shape,
-    dtype)}), made on `device` from `seed`."""
+    dtype)}) of the architecture `arch` (its STEM and RESIDUAL rules),
+    made on `device` from `seed`."""
     floats = [(k, s) for k, (s, dt) in shapes.items() if dt.is_floating_point]
     total = sum(math.prod(s) for _, s in floats)
     z = torch.randn(total, generator=seed_generator(seed, device),
@@ -120,12 +124,9 @@ def seeded_state(shapes: dict, init: dict, seed: int, device,
     state, at = {}, 0
     for key, shape in floats:
         n = math.prod(shape)
-        mul, off, kind = _scale(key, shape, init)
+        mul, off, kind, zero_sum = _scale(key, shape, init, arch)
         t = z[at:at + n].view(shape)
-        if len(shape) == 4 and shape[2] * shape[3] > 1 and \
-                not _is_stem(key):
-            # each k x k kernel sums to zero over its taps: the conv sees
-            # edges and texture, not a frame's mean level
+        if zero_sum:
             t = t - t.mean((2, 3), keepdim=True)
         t = t * mul + torch.as_tensor(off, dtype=torch.float32,
                                       device=device)
