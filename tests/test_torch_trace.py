@@ -3,7 +3,9 @@ spans nested as they run, the client API's and the training step's in
 their order, nothing recorded (and nothing exported) without a profiler,
 and `launch_counts()` reading every hand kernel's counter.
 
-Width 0.125, 64 px, under `torch.profiler.profile(activities=[CPU])`.
+Width 0.125, 64 px, under `torch.profiler.profile(activities=[CPU])`; the
+yolov3 (Darknet-53) cases at its published widths, 64 px, and one of them
+on the card (`cuda`).
 """
 
 import importlib
@@ -133,6 +135,60 @@ def test_serving_fn_exports_the_same_operators(module, profiling):
         got = program.module()(x)
     want = fn(x)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.fixture(scope="module")
+def yolov3():
+    """The Darknet-53 detector at its published widths, 64 px: no Focus
+    stem, so no K1."""
+    from yolox_tpu_torch.config import Yolov3
+
+    cfg = Yolov3()
+    cfg.test_size = (SIZE, SIZE)
+    return cfg.get_model(rng_seed=7, device="cpu")
+
+
+def test_yolov3_serve_emits_the_serving_spans_without_k1(yolov3):
+    """The Darknet path serves inside the same spans as the yolox cells:
+    the copy, the backbone, the head and the postprocess (K2 in it) under
+    `yolox.serve`, and no `yolox.k1`: its pixel conv is a plain conv."""
+    x = _frames(2, seed=8)
+    yolov3.serve(x, conf_thre=0.0)
+    spans = _spans(lambda: yolov3.serve(x, conf_thre=0.0))
+    assert [s[0] for s in spans] == [n for n in trace.SERVE_SPANS
+                                     if n != "yolox.k1"]
+    parent = {name: p for name, _, _, p in spans}
+    assert parent == {"yolox.serve": None, "yolox.h2d": "yolox.serve",
+                      "yolox.backbone": "yolox.serve",
+                      "yolox.head": "yolox.serve",
+                      "yolox.postprocess": "yolox.serve",
+                      "yolox.k2": "yolox.postprocess"}
+
+
+@pytest.mark.cuda
+def test_yolov3_serve_launches_k2_and_no_k1_on_the_card():
+    """On the card a bf16 yolov3 serve call of a uint8 batch launches K2
+    once and K1 never."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yolox_tpu_torch.config import Yolov3
+
+    cfg = Yolov3()
+    cfg.test_size = (SIZE, SIZE)
+    model = cfg.get_model(rng_seed=7, device="cuda").cast_params(
+        torch.bfloat16)
+    x = _frames(4, seed=9)
+    model.serve(x, conf_thre=0.0)
+    torch.cuda.synchronize()
+    before = trace.launch_counts()
+    calls = 3
+    for _ in range(calls):
+        dets, valid = model.serve(x, conf_thre=0.0)
+    torch.cuda.synchronize()
+    after = trace.launch_counts()
+    assert after["stem_conv_bn_act"] == before["stem_conv_bn_act"]
+    assert after["nms_keep"] == before["nms_keep"] + calls
+    assert dets.shape[0] == valid.shape[0] == 4
 
 
 def test_client_spans_in_order(module):
