@@ -926,6 +926,7 @@ def phase_serve(cfg, rng):
     import torch
 
     from yolox_tpu_torch import Yolox, YoloxModule, YoloxProcessor
+    from yolox_tpu_torch.ops.bn_act import bn_act
     from yolox_tpu_torch.ops.nms import postprocess_device
     from yolox_tpu_torch.ops.nms_kernel import nms_keep
     from yolox_tpu_torch.ops.stem import stem_conv_bn_act
@@ -960,15 +961,22 @@ def phase_serve(cfg, rng):
 
     torch.cuda.synchronize()
     stem_conv_bn_act.launches = nms_keep.launches = 0
+    # read as a difference: main() counts the epilogue phase by phase
+    epilogues = bn_act.launches
     got = [gpu(frames, threshold=t) for frames, t in zip(requests, thr)]
     got_stream = list(gpu.stream(stream_in, threshold=thr[-1], batch_size=4))
     torch.cuda.synchronize()
-    launches = {"stem": stem_conv_bn_act.launches, "nms": nms_keep.launches}
+    launches = {"stem": stem_conv_bn_act.launches, "nms": nms_keep.launches,
+                "bn_act": bn_act.launches - epilogues}
     batches = len(requests) + 3
-    log(f"main path: {batches} serve batches, launches {launches}")
-    if launches != {"stem": batches, "nms": batches}:
+    per_batch = len(epilogue_convs(gpu_mod))
+    log(f"main path: {batches} serve batches, launches {launches} "
+        f"({per_batch} epilogue BaseConvs)")
+    if launches != {"stem": batches, "nms": batches,
+                    "bn_act": batches * per_batch}:
         raise AssertionError("the main path did not run through K1 and K2 "
-                             "once per batch")
+                             "once per batch and the eval epilogue once a "
+                             "BaseConv past the stem")
 
     n_dets = 0
     for frames, t, dets in zip(requests, thr, got):
@@ -1060,6 +1068,126 @@ def stem_times(rng, wb, scale, bias, size=640, batches=(1, 32)):
             out[key] = t
             log(f"K1 C{c} {key} uint8 -> {dt}: {t}")
             del x_lib
+    return out
+
+
+# E1, the eval epilogue (`ops/bn_act.py`), at the benchmark cells' models
+# and batches: bf16 serving at 640 px
+EPILOGUE_CELLS = (("yolox_s", 256), ("yolox_x", 32), ("yolov3", 64))
+
+
+def epilogue_convs(module):
+    """The BaseConvs of `module` whose float eval output takes the eval
+    epilogue, in module order: all but a Focus stem's (K1)."""
+    from yolox_tpu_torch.models.blocks import BaseConv, Focus
+
+    stems = {id(m) for f in module.modules() if isinstance(f, Focus)
+             for m in f.modules()}
+    return [m for m in module.modules()
+            if isinstance(m, BaseConv) and id(m) not in stems]
+
+
+def epilogue_maps(module, size=640):
+    """(C, H, W, channels_last, act) of every epilogue output of one serve
+    call at B 1, in call order, read with forward hooks."""
+    maps, hooks = [], []
+    for m in epilogue_convs(module):
+        hooks.append(m.register_forward_hook(
+            lambda mod, args, y: maps.append(
+                (*y.shape[1:], not y.is_contiguous(), mod.act_name))))
+    try:
+        module.serve(np.zeros((1, size, size, 3), np.uint8))
+    finally:
+        for h in hooks:
+            h.remove()
+    return maps
+
+
+def epilogue_case(b, shape, seed, full=True):
+    """E1 on one bf16 map of batch b: device ms (`queued_ms`) against its
+    byte bound (z read once, y written once), and the library pair it
+    replaced (`F.batch_norm` on bf16 parameters, then SiLU, or LReLU's
+    compare, multiply and select, as the blocks ran them); with `full`,
+    event ms of both, the plain version's, and the kernel held bit-equal
+    to the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolox_tpu_torch.ops.bn_act import bn_act, bn_act_plain
+
+    c, h, w, channels_last, act = shape
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    z = torch.randn(b, c, h, w, generator=gen, device=CARD).bfloat16()
+    if channels_last:
+        z = z.contiguous(memory_format=torch.channels_last)
+    gamma, var = (torch.rand(c, generator=gen, device=CARD) + 0.5
+                  for _ in range(2))
+    beta, mean = (torch.rand(c, generator=gen, device=CARD) - 0.5
+                  for _ in range(2))
+    scale = gamma * torch.rsqrt(var + 1e-3)
+    bias = beta - mean * scale
+    lib_stats = [t.bfloat16() for t in (mean, var, gamma, beta)]
+
+    def kernel():
+        return bn_act(z, scale, bias, act)
+
+    def library():
+        y = F.batch_norm(z, *lib_stats, False, 0.0, 1e-3)
+        return F.silu(y) if act == "silu" else torch.where(y >= 0, y,
+                                                          0.1 * y)
+
+    t = {"B": b, "C": c, "H": h, "W": w, "act": act,
+         "layout": "channels_last" if channels_last else "nchw",
+         "bound_ms": 1e3 * 2 * z.numel() * z.element_size()
+         / H100_HBM_BYTES, "bound_by": "bytes",
+         "device_ms": queued_ms(kernel, 10),
+         "library_device_ms": queued_ms(library, 10)}
+    t["roofline_pct"] = 100 * t["bound_ms"] / t["device_ms"]
+    if full:
+        t.update(ms=cuda_ms(kernel, 20), library_ms=cuda_ms(library, 20),
+                 plain_ms=cuda_ms(lambda: bn_act_plain(z, scale, bias, act),
+                                  5))
+        if not torch.equal(kernel(), bn_act_plain(z, scale, bias, act)):
+            raise AssertionError(f"E1 {t}: not bit-equal to bn_act_plain")
+    del z
+    torch.cuda.empty_cache()
+    return t
+
+
+def epilogue_times(cells=EPILOGUE_CELLS):
+    """E1 at each cell's model and batch: its largest map and its most
+    frequent one (`epilogue_case`, bit-equal checked), and the device ms of
+    the kernel and of the library pair summed over every map of one call.
+    Returns {f"{model}_largest" / f"{model}_most_frequent" /
+    f"{model}_call": ...}."""
+    import collections
+
+    import torch
+
+    from yolox_tpu_torch import YoloxConfig
+
+    out = {}
+    for i, (name, b) in enumerate(cells):
+        module = YoloxConfig.get_named_config(name).get_model(
+            rng_seed=1, device=CARD).cast_params(torch.bfloat16)
+        maps = epilogue_maps(module)
+        del module
+        torch.cuda.empty_cache()
+        count = collections.Counter(maps)
+        cases = {"largest": max(maps, key=lambda m: m[0] * m[1] * m[2]),
+                 "most_frequent": count.most_common(1)[0][0]}
+        for j, (case, shape) in enumerate(cases.items()):
+            t = out[f"{name}_{case}"] = {"count": count[shape],
+                                         **epilogue_case(b, shape, 10 * i + j)}
+            log(f"E1 {name} {case}: {t}")
+        call = {"B": b, "launches": len(maps), "device_ms": 0.0,
+                "library_device_ms": 0.0, "bound_ms": 0.0}
+        for shape, n in count.items():
+            t = epilogue_case(b, shape, 100 + i, full=False)
+            for k in ("device_ms", "library_device_ms", "bound_ms"):
+                call[k] += n * t[k]
+        out[f"{name}_call"] = call
+        log(f"E1 {name} every map of one call: {call}")
     return out
 
 
@@ -2527,7 +2655,7 @@ def run_eval(cfg, rng, lines):
 
 
 def run_serve(cfg, rng, lines):
-    """Phases 2-5; returns the kernels-line entries of K1 and K2."""
+    """Phases 2-5; returns the kernels-line entries of K1, K2 and E1."""
     import torch
 
     from yolox_tpu_torch import YoloxModule
@@ -2545,6 +2673,9 @@ def run_serve(cfg, rng, lines):
     launches, gpu_mod, threshold = phase_serve(cfg, rng)
     times = phase_times(rng, gpu_mod, wb, scale, bias, threshold)
     lines.append({"serve": times["serve"]})
+    del gpu_mod
+    torch.cuda.empty_cache()
+    epilogue = epilogue_times()
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms")
     # a case's inputs beside its times (K2's walk floor and per-box time
@@ -2567,6 +2698,18 @@ def run_serve(cfg, rng, lines):
             **{case: {k: v for k, v in t[case].items() if k in case_keys}
                for case in t if case != head},
         })
+    head = f"{EPILOGUE_CELLS[-1][0]}_largest"
+    kernels.append({
+        "name": "bn_act", "route": "cuda",
+        "source": "yolox_tpu_torch/csrc/bn_act.cu",
+        # no Pallas kernel: XLA fuses eval BN and the activation into the
+        # conv on the TPU
+        "replaces": None, "launches": launches["bn_act"], "max_abs_err": 0.0,
+        **{k: epilogue[head][k] for k in keys},
+        "roofline_pct": epilogue[head]["roofline_pct"],
+        "unit": "one launch at yolov3's largest map, B 64, bf16, "
+                "channels_last, LReLU",
+        **{case: t for case, t in epilogue.items() if case != head}})
     return kernels
 
 
@@ -6160,9 +6303,10 @@ def _stage_launches(stage, **want):
         raise AssertionError(f"{stage['stage']}: launches {got}, want {want}")
 
 
-def check_serve_profile(res, on_card):
+def check_serve_profile(res, on_card, epilogues):
     """Phase 16's checks of one `torch_profile_serve` result: each stage's
-    launches (K1 once, K2 once in the full serve) and, on a card, every
+    launches (K1 once, K2 once in the full serve, the eval epilogue
+    `epilogues` = (backbone's, whole module's) times) and, on a card, every
     roofline share at most PROFILE_ROOF_LIMIT and device ms rising stage
     by stage within PROFILE_RISE_TOL."""
     stages = res["stages"]
@@ -6174,9 +6318,10 @@ def check_serve_profile(res, on_card):
             raise AssertionError(f"{s['stage']}: checksum {s['checksum']}")
     if not on_card:
         return
-    _stage_launches(stages[0], stem_conv_bn_act=1)
-    _stage_launches(stages[1], stem_conv_bn_act=1)
-    _stage_launches(stages[2], stem_conv_bn_act=1, nms_keep=1)
+    backbone, whole = epilogues
+    _stage_launches(stages[0], stem_conv_bn_act=1, bn_act=backbone)
+    _stage_launches(stages[1], stem_conv_bn_act=1, bn_act=whole)
+    _stage_launches(stages[2], stem_conv_bn_act=1, nms_keep=1, bn_act=whole)
     for s in stages:
         for share in ("mfu_pct", "hbm_pct"):
             if not s[share] <= 100 * PROFILE_ROOF_LIMIT:
@@ -6210,9 +6355,10 @@ def check_trace_report(rep, full_serve_ms, on_card):
                                  f"{len(names)} rows")
 
 
-def check_train_profile(res, n_convs, on_card):
-    """K1 once in the eval-mode forward, K3 and K4 once a 1x1 SiLU conv in
-    the backward and the full step (`--fused-bwd`), no other launch."""
+def check_train_profile(res, n_convs, on_card, n_epilogues):
+    """K1 once and the eval epilogue `n_epilogues` times in the eval-mode
+    forward, K3 and K4 once a 1x1 SiLU conv in the backward and the full
+    step (`--fused-bwd`), no other launch."""
     if [s["stage"] for s in res["stages"]] != [
             "fwd eval-mode (bf16)", "fwd train-mode (BN batch stats)",
             "fwd + SimOTA loss", "fwd + loss + grad (bwd)",
@@ -6224,7 +6370,7 @@ def check_train_profile(res, n_convs, on_card):
     if not on_card:
         return
     eval_fwd, train_fwd, fwd_loss, grad, step = res["stages"]
-    _stage_launches(eval_fwd, stem_conv_bn_act=1)
+    _stage_launches(eval_fwd, stem_conv_bn_act=1, bn_act=n_epilogues)
     _stage_launches(train_fwd)
     _stage_launches(fwd_loss)
     _stage_launches(grad, reduce_sums=n_convs, main_1x1=n_convs)
@@ -6257,6 +6403,11 @@ def run_profilers(n_convs, lines):
     t_phase = time.perf_counter()
     on_card = torch.device(CARD).type == "cuda"
     ttm, tps, ttr, ttp, tpa, tem = profiler_scripts()
+    # the eval epilogue's launches a backbone and a whole forward
+    model = ttm.named_config(PROFILE_MODEL).get_model(device="cpu")
+    epilogues = (len(epilogue_convs(model.backbone)),
+                 len(epilogue_convs(model)))
+    del model
     counters = _launch_counters()
     totals = dict.fromkeys(counters, 0)
     res = {"card": nvidia_smi() if on_card else None, "wall_s": {}}
@@ -6278,7 +6429,7 @@ def run_profilers(n_convs, lines):
         res["traffic"].pop("rows")
         serve = counted("serve_bf16", lambda: tps.main(
             common + ["--trace", tmp]))
-        check_serve_profile(serve, on_card)
+        check_serve_profile(serve, on_card, epilogues)
         rep = counted("trace_report", lambda: ttr.main(
             [tmp, "--iters", str(PROFILE_SERVE_ITERS), "--top", "100000"]))
         check_trace_report(rep, serve["stages"][-1]["device_ms"], on_card)
@@ -6286,11 +6437,11 @@ def run_profilers(n_convs, lines):
         res["trace_report"] = {**rep, "ops": rep["ops"][:15]}
         res["serve_f32"] = counted("serve_f32", lambda: tps.main(
             common + ["--dtype", "float32"]))
-        check_serve_profile(res["serve_f32"], on_card)
+        check_serve_profile(res["serve_f32"], on_card, epilogues)
         res["train"] = counted("train", lambda: ttp.main(
             ["--model", PROFILE_MODEL, "--batch", str(PROFILE_TRAIN_B),
              "--iters", str(PROFILE_STEP_ITERS), "--fused-bwd"] + dev))
-        check_train_profile(res["train"], n_convs, on_card)
+        check_train_profile(res["train"], n_convs, on_card, epilogues[1])
         aug = counted("augment", lambda: tpa.main(
             ["--batch", str(PROFILE_AUG_B), "--iters",
              str(PROFILE_STEP_ITERS), "--trace", str(Path(tmp) / "aug"),
@@ -7414,15 +7565,21 @@ def main() -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    from yolox_tpu_torch.ops.bn_act import bn_act
+
     rng = np.random.default_rng(2024)
 
-    walls, last = {}, [time.perf_counter()]
+    walls, last, epilogues = {}, [time.perf_counter()], {}
 
     def mark(name):
-        """Note the wall seconds since the previous mark under `name`."""
+        """Note the wall seconds and the eval epilogue's launches since the
+        previous mark under `name`."""
         now = time.perf_counter()
         walls[name] = now - last[0]
         last[0] = now
+        _card_sync()
+        epilogues[name] = bn_act.launches
+        bn_act.launches = 0
 
     phase_start()
     mark("1 start")
@@ -7475,6 +7632,17 @@ def main() -> int:
     zoo_launches = run_zoo(lines)
     mark("18 model zoo")
     for entry in kernels:
+        if entry["name"] == "bn_act":
+            # the epilogue's launches in each phase (`mark`)
+            entry.update({f"launches_{k}": epilogues[name] for k, name in (
+                ("serve_phases", "2-5 serve"), ("eval", "9 evaluation"),
+                ("int8", "11 int8"), ("train", "6-7 training"),
+                ("augment", "8 augmentation"), ("trainer", "10 trainer"),
+                ("cli", "12 commands"), ("parallel", "13 parallel"),
+                ("mesh", "14 meshes"), ("harness", "15 harnesses"),
+                ("profile", "16 profilers"), ("ab", "17 augmentation A/Bs"),
+                ("zoo", "18 model zoo"))})
+            continue
         key = {"stem_conv_bn_act": "stem", "nms_keep": "nms"}.get(
             entry["name"], entry["name"])
         entry["launches_trainer"] = trainer_launches[key]
@@ -7488,7 +7656,8 @@ def main() -> int:
     for line in lines:
         log(json.dumps(line))
     log(json.dumps({"phase_wall_s": walls,
-                    "total_s": sum(walls.values())}))
+                    "total_s": sum(walls.values()),
+                    "bn_act_launches": epilogues}))
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

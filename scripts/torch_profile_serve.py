@@ -224,9 +224,11 @@ def _leaves_bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
-# K1 and K2: eager serving calls their wrappers directly, outside aten
+# K1, K2 and the eval epilogue: eager serving calls their wrappers
+# directly, outside aten
 KERNEL_SITES = (("yolox_tpu_torch.models.blocks", "stem_conv_bn_act"),
-                ("yolox_tpu_torch.ops.nms", "nms_keep"))
+                ("yolox_tpu_torch.ops.nms", "nms_keep"),
+                ("yolox_tpu_torch.models.blocks", "bn_act"))
 
 
 @contextmanager

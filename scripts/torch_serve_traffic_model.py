@@ -141,18 +141,21 @@ class ConvCensus:
 
 
 @contextmanager
-def _plain_stem():
-    """The Focus stems run K1's plain version, which takes meta tensors
-    (the census counts the stem by its hooks, whatever runs inside)."""
+def _plain_kernels():
+    """The Focus stems run K1's plain version and the BaseConvs the eval
+    epilogue's, which take meta tensors (the census counts the convs by
+    their hooks, whatever runs inside)."""
     from yolox_tpu_torch.models import blocks
+    from yolox_tpu_torch.ops.bn_act import bn_act_plain
     from yolox_tpu_torch.ops.stem import stem_conv_bn_act_plain
 
-    kernel = blocks.stem_conv_bn_act
-    blocks.stem_conv_bn_act = stem_conv_bn_act_plain
+    kernels = blocks.stem_conv_bn_act, blocks.bn_act
+    blocks.stem_conv_bn_act, blocks.bn_act = stem_conv_bn_act_plain, \
+        bn_act_plain
     try:
         yield
     finally:
-        blocks.stem_conv_bn_act = kernel
+        blocks.stem_conv_bn_act, blocks.bn_act = kernels
 
 
 def conv_census(model: str, batch: int, dtype: str = "bfloat16",
@@ -172,7 +175,7 @@ def conv_census(model: str, batch: int, dtype: str = "bfloat16",
     module = module.to("meta")
     x = torch.empty((batch, size, size, 3), dtype=tdtype, device="meta")
     census = ConvCensus(tdtype.itemsize)
-    with torch.no_grad(), _plain_stem():
+    with torch.no_grad(), _plain_kernels():
         with census.count(module, "backbone"):
             fpn = module.backbone(x)
         with census.count(module, "head"):

@@ -13,7 +13,8 @@ core truncates the sums it forms); K2 bit-equal keep masks at any K; K3 and K4 a
 of |terms|); K5, fused and single-pass, bit-equal to its plain versions;
 Q1 and Q2 (`-k int8`) as `chip_smoke.check_int8_conv` states them (sums
 exact, float32 within 4 ulp, bf16 one ulp, requantized codes off by 1 on at
-most 1e-4 of them); the card's
+most 1e-4 of them); the eval epilogue (`-k bn_act`) bit-equal to its plain
+version run on the card; the card's
 augmentation
 against the CPU's on the same draws as `chip_smoke.augment_card_vs_cpu`
 states them.
@@ -578,12 +579,167 @@ class _OneOp(torch.nn.Module):
         return self.fn(x, *rest, *self.consts)
 
 
+# (B, C, H, W): C 3, 24, 80; H*W 1, 7, 12, 24, 400 (the NCHW and NHWC
+# vector paths and the per-element one); B 1; empty
+BN_ACT_SHAPES = [(1, 3, 1, 7), (2, 24, 20, 20), (1, 80, 1, 1), (3, 80, 7, 1),
+                 (1, 24, 1, 7), (2, 3, 20, 20), (1, 80, 20, 20),
+                 (2, 24, 4, 6), (1, 3, 3, 4), (0, 24, 20, 20)]
+
+
+def _bn_act_inputs(gen, shape, dtype, layout, cuda, offset=0):
+    """z spread over [-120, 120] (the divide's slow path and expf's
+    overflow included) in `layout`, starting `offset` elements into its
+    buffer; scale and bias as eval BN folds them."""
+    b, c, h, w = shape
+    n = b * c * h * w
+    vals = torch.randn(n, generator=gen, device=cuda) * 3
+    vals[::7] = torch.rand(vals[::7].shape, generator=gen,
+                           device=cuda) * 240 - 120
+    buf = torch.empty(n + offset, device=cuda, dtype=dtype)
+    buf[offset:] = vals.to(dtype)
+    if layout == "channels_last":
+        z = buf[offset:].view(b, h, w, c).permute(0, 3, 1, 2)
+    else:
+        z = buf[offset:].view(b, c, h, w)
+    scale = torch.rand(c, generator=gen, device=cuda) * 2 + 0.1
+    bias = torch.randn(c, generator=gen, device=cuda)
+    return z, scale, bias
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("act", ["silu", "relu", "lrelu"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_act_kernel_bit_equal_to_plain(cuda, dtype, act, layout):
+    """The eval epilogue equals `bn_act_plain` run on the card bit for bit,
+    in z's dtype and memory format, at every shape of `BN_ACT_SHAPES` and
+    on a z one element past an aligned address (the per-element path)."""
+    from yolox_tpu_torch.ops.bn_act import bn_act, bn_act_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for shape in BN_ACT_SHAPES:
+        for offset in (0, 1):
+            z, scale, bias = _bn_act_inputs(gen, shape, getattr(torch, dtype),
+                                            layout, cuda, offset)
+            before = bn_act.launches
+            got = bn_act(z, scale, bias, act)
+            want = bn_act_plain(z, scale, bias, act)
+            torch.cuda.synchronize()
+            assert bn_act.launches == before + (z.numel() > 0)
+            assert got.dtype == z.dtype and got.shape == z.shape
+            assert got.stride() == z.stride() or z.numel() == 0
+            assert torch.equal(got, want), (shape, offset)
+
+
+def test_bn_act_kernel_at_a_serving_map(cuda):
+    """A yolox-s and a yolov3 map at 640 px, bf16: bit-equal to the plain
+    version."""
+    from yolox_tpu_torch.ops.bn_act import bn_act, bn_act_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for shape, layout, act in (((8, 64, 160, 160), "nchw", "silu"),
+                               ((4, 32, 640, 640), "channels_last", "lrelu")):
+        z, scale, bias = _bn_act_inputs(gen, shape, torch.bfloat16, layout,
+                                        cuda)
+        assert torch.equal(bn_act(z, scale, bias, act),
+                           bn_act_plain(z, scale, bias, act))
+
+
+def test_bn_act_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from yolox_tpu_torch.ops.bn_act import bn_act
+
+    z = torch.zeros(2, 8, 4, 6, device=cuda)
+    one, zero = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        bn_act(z.double(), one, zero)
+    with pytest.raises(ValueError, match="dtype"):
+        bn_act(z.half(), one, zero)
+    with pytest.raises(ValueError, match="scale"):
+        bn_act(z, one.bfloat16(), zero)
+    with pytest.raises(ValueError, match="bias"):
+        bn_act(z, one, zero[:4])
+    with pytest.raises(ValueError, match="bias"):
+        bn_act(z, one, zero.cpu())
+    with pytest.raises(ValueError, match="channels_last"):
+        bn_act(z[..., ::2], one, zero)
+    with pytest.raises(ValueError, match="want z"):
+        bn_act(z[0], one, zero)
+    with pytest.raises(AttributeError):
+        bn_act(z, one, zero, "gelu")
+
+
+@pytest.mark.parametrize("route", ["eager", "operator"])
+def test_bn_act_kernel_takes_the_plain_gradients(cuda, route):
+    """While autograd records, the kernel's output (eagerly, and through
+    the registered operator) equals the plain version's, and so do the
+    gradients of z, scale and bias, bit for bit; an eval BaseConv on the
+    card is differentiable through it, as the unfused BN and activation
+    were."""
+    from yolox_tpu_torch.models.blocks import BaseConv
+    from yolox_tpu_torch.ops.bn_act import bn_act, bn_act_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    run = bn_act if route == "eager" else torch.ops.yolox_tpu_torch.bn_act
+    for layout, act in (("nchw", "silu"), ("channels_last", "lrelu")):
+        z, scale, bias = _bn_act_inputs(gen, (2, 24, 20, 20), torch.float32,
+                                        layout, cuda)
+        ins = [t.requires_grad_() for t in (z, scale, bias)]
+        before = bn_act.launches
+        y = run(*ins, act)
+        assert bn_act.launches == before + 1 and y.grad_fn is not None
+        want = bn_act_plain(*ins, act)
+        assert torch.equal(y, want)
+        g = torch.randn(y.shape, generator=gen, device=cuda)
+        for a, b in zip(torch.autograd.grad(y, ins, g),
+                        torch.autograd.grad(want, ins, g)):
+            assert torch.equal(a, b)
+
+    m = BaseConv(16, 24, 3, 1).to(cuda).eval()
+    x = torch.randn(2, 16, 12, 12, generator=gen, device=cuda,
+                    requires_grad=True)
+    gx, gw = torch.autograd.grad(m(x).square().sum(), (x, m.bn.weight))
+    wx, ww = torch.autograd.grad(
+        bn_act_plain(m.conv(x), *m.bn_fold(), "silu").square().sum(),
+        (x, m.bn.weight))
+    torch.testing.assert_close(gx, wx)
+    torch.testing.assert_close(gw, ww)
+
+
+@pytest.mark.parametrize("name,convs", [("yolox_s", 73), ("yolox_x", 145),
+                                        ("yolov3", 85)])
+def test_serve_runs_one_epilogue_a_base_conv(cuda, name, convs):
+    """A bf16 serve call at 640 px launches the eval epilogue once a
+    BaseConv past the stem, and the profiler finds no eval-BN kernel of
+    PyTorch's in it."""
+    from yolox_tpu_torch import YoloxConfig, YoloxModule
+    from yolox_tpu_torch.config import Yolov3
+    from yolox_tpu_torch.utils import trace
+
+    cfg = Yolov3() if name == "yolov3" else YoloxConfig.get_named_config(name)
+    module = (cfg.get_model(rng_seed=7, device="cuda") if name == "yolov3"
+              else YoloxModule.from_config(cfg, rng_seed=7)).cast_params(
+        torch.bfloat16)
+    x = np.random.default_rng(8).integers(0, 256, (2, 640, 640, 3),
+                                          dtype=np.uint8)
+    module.serve(x)
+    torch.cuda.synchronize()
+    before = trace.launch_counts()["bn_act"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        module.serve(x)
+        torch.cuda.synchronize()
+    assert trace.launch_counts()["bn_act"] == before + convs
+    kernels = {e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("bn_act_" in k for k in kernels), sorted(kernels)
+    assert not [k for k in kernels if "batch_norm" in k], sorted(kernels)
+
+
 @pytest.mark.parametrize("kernel", ["stem", "nms", "int8_conv",
-                                    "int8_dwconv"])
+                                    "int8_dwconv", "bn_act"])
 def test_exported_operator_equals_direct_launch(cuda, kernel):
-    """K1, K2, Q1 and Q2 exported alone: the program holds the operator,
-    runs the kernel (its counter advances by one a call) and returns what
-    the direct launch does, bit for bit."""
+    """K1, K2, Q1, Q2 and the eval epilogue exported alone: the program
+    holds the operator, runs the kernel (its counter advances by one a
+    call) and returns what the direct launch does, bit for bit."""
     from yolox_tpu_torch.ops import int8_conv as q
     from yolox_tpu_torch.ops import nms_kernel, stem
     from yolox_tpu_torch.ops.library import exported_ops
@@ -603,6 +759,15 @@ def test_exported_operator_equals_direct_launch(cuda, kernel):
         mod = _OneOp(nms_kernel.nms_keep, 0.5)
         counter, direct = nms_kernel.nms_keep, \
             lambda b, v: nms_kernel.nms_keep.direct(b, v, 0.5)
+    elif kernel == "bn_act":
+        from yolox_tpu_torch.ops import bn_act as epilogue
+
+        z, scale, bias = _bn_act_inputs(gen, (2, 24, 20, 20), torch.bfloat16,
+                                        "channels_last", cuda)
+        args = (z,)
+        mod = _OneOp(epilogue.bn_act, scale, bias, "lrelu")
+        counter, direct = epilogue.bn_act, \
+            lambda z: epilogue.bn_act.direct(z, scale, bias, "lrelu")
     else:
         dw = kernel == "int8_dwconv"
         x, w, scale, bias, out_scale = q_inputs(gen, 2, 64, 64, 20, 24, 3,

@@ -1,9 +1,9 @@
 """`yolox-tpu-torch export` and the kernels' operators (`ops/library.py`)
 on the CPU.
 
-The exported programs carry K1 and K2 (and Q1 / Q2 with `--int8`) as
-`yolox_tpu_torch::` operator nodes, survive `torch.export.save` / `load`,
-and reloaded equal the eager `forward` / `serve` of the same weights bit
+The exported programs carry K1, K2 and a float program's eval epilogues
+(Q1 / Q2 with `--int8`) as `yolox_tpu_torch::` operator nodes, survive
+`torch.export.save` / `load`, and reloaded equal the eager `forward` / `serve` of the same weights bit
 for bit (on the CPU both run the kernels' plain versions). The operators'
 fake implementations give the shapes, dtypes and strides of the real
 outputs at every conv shape of nano and yolox-s width 0.125.
@@ -22,6 +22,8 @@ from yolox_tpu_torch.ops.library import exported_ops
 import tests._torch_threads  # noqa: F401,E402  (one CPU share a worker)
 
 SIZE = 64
+# BaseConvs of a yolox-s forward past the stem: one eval epilogue each
+BASE_CONVS = 73
 
 
 def _cfg():
@@ -86,12 +88,14 @@ def test_exported_program_equals_eager(setup, kind):
         got = program.module()(x)
     if kind == "postprocess":
         want = module.serve(x, conf_thre=0.0, nms_thre=0.65, max_det=32)
-        assert _counts(program) == {"stem_conv_bn_act": 1, "nms_keep": 1}
+        assert _counts(program) == {"stem_conv_bn_act": 1, "nms_keep": 1,
+                                    "bn_act": BASE_CONVS}
         assert int(got[1].sum()) > 0
     elif kind == "forward":
         want = (module(x),)
         got = (got,)
-        assert _counts(program) == {"stem_conv_bn_act": 1}
+        assert _counts(program) == {"stem_conv_bn_act": 1,
+                                    "bn_act": BASE_CONVS}
     else:
         table = module.calibrate_int8(YoloxProcessor(_cfg())(
             [Image.open(p) for p in paths]))

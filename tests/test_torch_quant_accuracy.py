@@ -125,7 +125,7 @@ def _amplified_nano():
             conv.weight.copy_(torch.from_numpy(
                 rng.normal(0, 1e4, conv.weight.shape).astype(np.float32)))
             conv.bias.zero_()
-    module.drop_int8_cache()
+    module.drop_caches()
     return module, cfg
 
 

@@ -127,7 +127,8 @@ def test_serving_fn_exports_the_same_operators(module, profiling):
     else:
         program = torch.export.export(fn, (x,), strict=False)
     assert exported_ops(program) == {"stem_conv_bn_act": 1, "nms_keep": 1,
-                                     "int8_conv": 0, "int8_dwconv": 0}
+                                     "int8_conv": 0, "int8_dwconv": 0,
+                                     "bn_act": 73}
     for node in program.graph_module.graph.nodes:
         assert "profiler" not in str(node.target)
         assert "record_function" not in str(node.target)

@@ -55,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from yolox_tpu_torch.ops import conv_bwd
 from yolox_tpu_torch.ops import quant
+from yolox_tpu_torch.ops.bn_act import bn_act
 from yolox_tpu_torch.ops.quant import QTensor
 from yolox_tpu_torch.ops.stem import stem_conv_bn_act
 
@@ -169,6 +170,14 @@ class BlockState:
         self.sink[key] = quant.calib_channel_amax(y, self.percentile)
 
 
+def tensors_key(tensors) -> tuple:
+    """(address, in-place version, dtype, device) of each tensor: what a
+    cache made from them is keyed on, the cache holding the tensors so
+    that no other tensor takes their addresses."""
+    return tuple((t.data_ptr(), t._version, t.dtype, t.device)
+                 for t in tensors)
+
+
 class Int8Hooks:
     """What a block with int8 hooks carries: the module's `BlockState` and
     its own name there (set by `YoloxModule`), and a cache of its
@@ -194,8 +203,7 @@ class Int8Hooks:
 
     @staticmethod
     def _cache_key(st, params):
-        return (st.mode, id(st.table)) + tuple(
-            (t.data_ptr(), t._version, t.dtype, t.device) for t in params)
+        return (st.mode, id(st.table)) + tensors_key(params)
 
     def cached(self, params, make):
         """make(), reused while the mode, the table object and every
@@ -239,10 +247,17 @@ def update_running_stats(bn: nn.BatchNorm2d, mean, var, n: int) -> None:
 class BaseConv(Int8Hooks, nn.Module):
     """Conv2d -> BatchNorm -> activation (`network_blocks.py:27-52`).
 
+    In float eval the conv's output takes eval BN and the activation in
+    one pass, the epilogue kernel (`ops/bn_act.py`), with BN folded into a
+    float32 (scale, bias) that is cached while the BN tensors stay the
+    same (`eval_affine`).
+
     `defer_requant_hbm`: in the HBM mode this conv's float32 output goes
     to a residual add that requantizes (set by Bottleneck / ResLayer)."""
 
     defer_requant_hbm = False
+    # (key, (scale, bias), the BN tensors) of `eval_affine`
+    _fold_cache = None
     # set while a checkpointed stage is recomputed in the backward: the
     # running statistics already moved in the forward
     recomputing = False
@@ -277,7 +292,29 @@ class BaseConv(Int8Hooks, nn.Module):
             return self._forward_int8(x, mode)
         if self.training:
             return self._forward_train(x)
-        return self.act(self.bn(self.conv(x)))
+        scale, bias = self.eval_affine()
+        return bn_act(self.conv(x), scale, bias, self.act_name)
+
+    def eval_affine(self):
+        """`bn_fold()`, reused while the four BN tensors keep their
+        address, in-place version, dtype and device (`YoloxModule`'s
+        `load_params` and `cast_params` also drop it): the fold is ~5
+        small launches. Made anew, not cached, while `torch.export`
+        traces (the program computes it), while autograd records (the fold
+        stays differentiable, as the epilogue is: `ops/bn_act.py`), and
+        for inference tensors (no version)."""
+        if torch.compiler.is_exporting() or torch.is_grad_enabled():
+            return self.bn_fold()
+        bn = self.bn
+        tensors = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        try:
+            key = tensors_key(tensors)
+        except RuntimeError:  # an inference tensor has no version counter
+            return self.bn_fold()
+        c = self._fold_cache
+        if c is None or c[0] != key:
+            c = self._fold_cache = (key, self.bn_fold(), tensors)
+        return c[1]
 
     def _qparams(self):
         bn = self.bn

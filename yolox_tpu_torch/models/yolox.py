@@ -308,14 +308,17 @@ class YoloxModule(nn.Module):
         bfloat16. Returns self."""
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {_DTYPES}, got {dtype}")
-        self.drop_int8_cache()
+        self.drop_caches()
         return self.to(dtype)
 
-    def drop_int8_cache(self) -> None:
-        """Forget every block's quantized weights (rebuilt on next use)."""
+    def drop_caches(self) -> None:
+        """Forget every block's quantized weights and every BaseConv's
+        eval-BN fold (each rebuilt on next use)."""
         for m in self.modules():
             if isinstance(m, Int8Hooks):
                 m._q_cache = None
+            if isinstance(m, BaseConv):
+                m._fold_cache = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -638,7 +641,7 @@ class YoloxModule(nn.Module):
                     f"mismatched={mismatched[:8]}")
         self.load_state_dict({k: torch.as_tensor(v) for k, v in flat.items()},
                              strict=strict)
-        self.drop_int8_cache()
+        self.drop_caches()
 
     @classmethod
     def _cached_pretrained_weights(cls, model_id: str) -> str:

@@ -28,13 +28,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("stem", "nms", "conv_bwd", "warp", "int8_conv")
+KERNELS = ("stem", "nms", "conv_bwd", "warp", "int8_conv", "bn_act")
 
 # No --use_fast_math: the NMS kernel's IoU and the shear's lerp must round
 # exactly like their PyTorch plain versions, the stem's epilogue and the
 # conv backward's float32 one keep IEEE expf (its bf16 one takes the
-# SFU's, see csrc/conv_bwd.cu), and the int8 convs' epilogue its IEEE
-# divide and float64 exp.
+# SFU's, see csrc/conv_bwd.cu), the int8 convs' epilogue its IEEE
+# divide and float64 exp, and the eval epilogue (csrc/bn_act.cu) equals
+# PyTorch's BN-then-activation arithmetic bit for bit.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -60,6 +61,8 @@ SIGNATURES = {
                   "yolox_int8_dwconv": [_P] * 6 + [_I] * 12 + [_P],
                   "yolox_int8_init": [],
                   "yolox_int8_epilogue_mismatches": [_P, _P]},
+    # (z, y, scale, bias, dtype, layout, N, C, H * W, act, stream)
+    "bn_act": {"yolox_bn_act": [_P] * 4 + [_I] * 6 + [_P]},
 }
 
 _lock = threading.Lock()

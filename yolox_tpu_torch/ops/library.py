@@ -11,6 +11,7 @@ dtype and strides:
     yolox_tpu_torch::nms_keep           K2 (`ops/nms_kernel.py`)
     yolox_tpu_torch::int8_conv          Q1 (`ops/int8_conv.py`)
     yolox_tpu_torch::int8_dwconv        Q2 (`ops/int8_conv.py`)
+    yolox_tpu_torch::bn_act             the eval epilogue (`ops/bn_act.py`)
 
 Each wrapper is decorated with `exportable(name)`, the one place that
 routes: an eager call runs the wrapper's own body (`wrapper.direct`),
@@ -33,7 +34,7 @@ from typing import Optional
 import torch
 
 NAMESPACE = "yolox_tpu_torch"
-OPS = ("stem_conv_bn_act", "nms_keep", "int8_conv", "int8_dwconv")
+OPS = ("stem_conv_bn_act", "nms_keep", "int8_conv", "int8_dwconv", "bn_act")
 
 
 def exportable(op_name: str):
@@ -137,6 +138,37 @@ def int8_dwconv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 @int8_dwconv.register_fake
 def _(x, w, scale, bias, ksize, stride, act, out_dtype, out_scale):
     return _int8_fake(x, w, scale, ksize, stride, out_dtype, out_scale)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::bn_act", mutates_args=())
+def bn_act(z: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+           act: str) -> torch.Tensor:
+    from yolox_tpu_torch.ops import bn_act as epilogue
+
+    return epilogue.bn_act.direct(z, scale, bias, act)
+
+
+@bn_act.register_fake
+def _(z, scale, bias, act):
+    """z's shape, dtype and memory format."""
+    return torch.empty_like(z)
+
+
+def _bn_act_context(ctx, inputs, output):
+    z, scale, bias, act = inputs
+    ctx.save_for_backward(z, scale, bias)
+    ctx.act = act
+
+
+def _bn_act_backward(ctx, grad):
+    """The plain version's gradients (`ops/bn_act.py::plain_grads`)."""
+    from yolox_tpu_torch.ops import bn_act as epilogue
+
+    return (*epilogue.plain_grads(*ctx.saved_tensors, ctx.act, grad,
+                                  ctx.needs_input_grad[:3]), None)
+
+
+bn_act.register_autograd(_bn_act_backward, setup_context=_bn_act_context)
 
 
 def exported_ops(program) -> dict:

@@ -57,8 +57,10 @@ def span(name: str):
 
 
 def launch_counts() -> dict:
-    """{wrapper name: launches so far} of the hand kernels K1-K5, Q1 and
-    Q2; on CPU tensors the plain versions run and count nothing."""
+    """{wrapper name: launches so far} of the hand kernels K1-K5, Q1, Q2
+    and the eval epilogue (`bn_act`); on CPU tensors the plain versions
+    run and count nothing."""
+    from yolox_tpu_torch.ops.bn_act import bn_act
     from yolox_tpu_torch.ops.conv_bwd import main_1x1, reduce_sums
     from yolox_tpu_torch.ops.int8_conv import int8_conv, int8_dwconv
     from yolox_tpu_torch.ops.nms_kernel import nms_keep
@@ -67,7 +69,7 @@ def launch_counts() -> dict:
 
     return {f.__name__: f.launches for f in (
         stem_conv_bn_act, nms_keep, reduce_sums, main_1x1, shear_x,
-        shear_xy, int8_conv, int8_dwconv)}
+        shear_xy, int8_conv, int8_dwconv, bn_act)}
 
 
 def copy_counts() -> dict:
